@@ -1,0 +1,145 @@
+"""160-bit identifiers as limb tensors.
+
+Ids are five 32-bit limbs in big-endian limb order (limb 0 holds bytes
+0..3, the most significant), so lexicographic byte order is
+lexicographic limb order.  The numpy codec (``ids_from_bytes`` …) is a
+copy of the JAX package's and works on uint32 arrays.
+
+**The key domain.**  torch has uint32 ``^``, sort and indexing, but no
+uint32 ``<``, ``min``, ``>>`` or ``searchsorted``.  So every 160-bit
+quantity the port holds in a tensor — ids and XOR distances alike — is
+int32 in the sign-flipped domain: ``key = u ^ 0x80000000`` viewed as
+int32 (numerically ``u - 2**31``).  Signed order on keys is unsigned
+order on the ids, and the domain is closed under the XOR metric:
+``xor_ids(a, b) = a ^ b ^ FLIP`` is the key of the distance, and
+``xor_ids(q, dist)`` gives back the key of the id.  ``a ^ b`` alone is
+the *raw* distance bits, which is what ``clz32`` and the CUDA kernels
+read.  ``to_keys`` / ``from_keys`` convert at the numpy boundary; public
+results leave the package as uint32 numpy identical to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+
+HASH_BYTES = 20
+N_LIMBS = 5
+ID_BITS = 160
+
+FLIP = -(1 << 31)          # int32 bit pattern 0x80000000
+KEY_MAX = (1 << 31) - 1    # key of the uint32 all-ones limb
+
+
+# ---------------------------------------------------------------------------
+# host codec (numpy uint32, copied from the JAX package)
+# ---------------------------------------------------------------------------
+
+def ids_from_bytes(raw) -> np.ndarray:
+    """Pack id bytes into big-endian uint32 limbs.
+
+    `raw`: bytes of length 20*n, or uint8 array [..., 20].
+    Returns uint32 [..., 5] (numpy).
+    """
+    if isinstance(raw, (bytes, bytearray, memoryview)):
+        if len(raw) % HASH_BYTES:
+            raise ValueError(
+                f"id buffer length {len(raw)} is not a multiple of {HASH_BYTES}"
+            )
+        arr = np.frombuffer(bytes(raw), dtype=np.uint8).reshape(-1, HASH_BYTES)
+    else:
+        arr = np.asarray(raw, dtype=np.uint8)
+    if arr.shape[-1] != HASH_BYTES:
+        raise ValueError(f"expected trailing dim {HASH_BYTES}, got {arr.shape}")
+    # big-endian: limb = b0<<24 | b1<<16 | b2<<8 | b3
+    limbs = arr.reshape(arr.shape[:-1] + (N_LIMBS, 4)).astype(np.uint32)
+    return (
+        (limbs[..., 0] << 24)
+        | (limbs[..., 1] << 16)
+        | (limbs[..., 2] << 8)
+        | limbs[..., 3]
+    )
+
+
+def ids_to_bytes(ids) -> np.ndarray:
+    """Inverse of :func:`ids_from_bytes` → uint8 [..., 20]."""
+    ids = np.asarray(ids, dtype=np.uint32)
+    out = np.empty(ids.shape[:-1] + (N_LIMBS, 4), dtype=np.uint8)
+    out[..., 0] = (ids >> 24) & 0xFF
+    out[..., 1] = (ids >> 16) & 0xFF
+    out[..., 2] = (ids >> 8) & 0xFF
+    out[..., 3] = ids & 0xFF
+    return out.reshape(ids.shape[:-1] + (HASH_BYTES,))
+
+
+def ids_from_hashes(hashes) -> np.ndarray:
+    """Pack an iterable of :class:`opendht_tpu_torch.infohash.InfoHash`
+    → uint32 [n, 5]."""
+    return ids_from_bytes(b"".join(bytes(h) for h in hashes))
+
+
+# ---------------------------------------------------------------------------
+# numpy uint32 <-> key tensors
+# ---------------------------------------------------------------------------
+
+def to_keys(u32, device=None) -> torch.Tensor:
+    """uint32 array-like → int32 key tensor on ``device`` (None = cuda)."""
+    a = np.ascontiguousarray(np.asarray(u32, dtype=np.uint32)
+                             ^ np.uint32(0x80000000))
+    return torch.from_numpy(a.view(np.int32)).to(resolve_device(device))
+
+
+def from_keys(keys: torch.Tensor) -> np.ndarray:
+    """int32 key tensor → uint32 numpy (the JAX package's representation)."""
+    a = keys.detach().to("cpu", torch.int32).contiguous().numpy()
+    return a.view(np.uint32) ^ np.uint32(0x80000000)
+
+
+# ---------------------------------------------------------------------------
+# id math on key tensors
+# ---------------------------------------------------------------------------
+
+def xor_ids(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Key of the XOR distance of two key tensors (broadcasts)."""
+    return a ^ b ^ FLIP
+
+
+def clz32(x: torch.Tensor) -> torch.Tensor:
+    """Leading zeros of each 32-bit pattern (``x`` int32 holding the raw
+    bits, e.g. ``a ^ b`` of two keys); 32 for 0.  int32."""
+    u = x.to(torch.int64) & 0xFFFFFFFF
+    n = torch.zeros_like(u)
+    for s in (16, 8, 4, 2, 1):
+        top_zero = u < (1 << (32 - s))
+        n = n + torch.where(top_zero, s, 0)
+        u = torch.where(top_zero, u << s, u)
+    return torch.where(u == 0, 32, n).to(torch.int32)
+
+
+def common_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Length of the shared bit prefix of two key tensors [..., 5],
+    0..160 (↔ Hash::commonBits, infohash.h:154-176).  int32 [...]."""
+    x = a ^ b                                   # raw difference bits
+    out = torch.full(x.shape[:-1], ID_BITS, dtype=torch.int32,
+                     device=x.device)
+    prev_zero = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
+    for i in range(N_LIMBS):
+        xi = x[..., i]
+        first = prev_zero & (xi != 0)
+        out = torch.where(first, 32 * i + clz32(xi), out)
+        prev_zero = prev_zero & (xi == 0)
+    return out
+
+
+def lex_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < b in lexicographic limb order, over key tensors [..., 5]."""
+    lt = torch.zeros(torch.broadcast_shapes(a.shape, b.shape)[:-1],
+                     dtype=torch.bool, device=a.device)
+    eq = torch.ones_like(lt)
+    for i in range(N_LIMBS):
+        ai, bi = a[..., i], b[..., i]
+        lt = lt | (eq & (ai < bi))
+        eq = eq & (ai == bi)
+    return lt
