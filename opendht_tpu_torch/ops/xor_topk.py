@@ -97,7 +97,7 @@ def xor_topk(queries, table, *, k: int = 8, tile: int = 4096, valid=None):
 
 def xor_topk_chunked(queries, table, *, k: int = 8, tile: int = 4096,
                      q_chunk: int = 1024, valid=None):
-    """Query-chunked driver bounding memory; same result as :func:`xor_topk`."""
+    """Query-chunked form bounding memory; same result as :func:`xor_topk`."""
     outs = [xor_topk(queries[s:s + q_chunk], table, k=k, tile=tile,
                      valid=valid)
             for s in range(0, max(queries.shape[0], 1), q_chunk)]
