@@ -13,8 +13,10 @@ Phases, one JSON line each:
 3. parity  — (printed after main, whose inputs it reuses) each kernel
              against its plain torch version on the card, bit
              for bit: window_select at k ∈ {1,8,14,16,21} on edge-case rows
-             (bounds 0, 1, 191, 192, full ties, all-ones distances) and on
-             the main path's own rows; lex_topk_select at W ∈ {32,128,256},
+             (bounds 0, 1, 191, 192, full ties, all-ones distances), with
+             a row_index (many queries on one row, the first and last
+             rows) at k ∈ {1,8,16,21}, and on the main path's own
+             (expanded, j); lex_topk_select at W ∈ {32,128,256,1024},
              k ∈ {8,16} with invalid rows and exhaustion, and on the main
              path's own windows.
 4. main    — NodeTable(device="cuda").bulk_load(1,000,000 seeded ids), then
@@ -25,9 +27,15 @@ Phases, one JSON line each:
              xor_topk on 256 rows and a numpy oracle on 32 rows.
 5. timing  — CUDA-event medians (≥ 5 reps after warm-up) of each kernel,
              its plain version and the plain fast3 select at the main
-             path's shape, and host-clock medians of the whole calls.
+             path's shape, window_select on pre-gathered rows and the
+             expanded[j] row gather alone (what reading in place removes),
+             and host-clock medians of the whole calls.
 6. profile — torch.profiler over one find_closest k=16 call: device time
              by kernel and copy, and the device's busy share of the call.
+7. memory  — the peak device memory one find_closest k=16 call allocates
+             beyond what was allocated before it (the snapshot's expansion
+             already built); fails unless it is below the Q·970·4 bytes that
+             gathered [Q, 970] rows alone would take.
 
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failure raises (nonzero exit, no ok line).  Without a card it exits
@@ -114,7 +122,9 @@ def host_median_ms(fn, *, reps: int = 5, warmup: int = 1) -> float:
 
 def edge_window_inputs(rng, Q):
     """Random expanded rows with bounds 0, 1, 191, 192 and random, full
-    160-bit ties, and valid lanes at all-ones distance (uint32 numpy)."""
+    160-bit ties, valid lanes at all-ones distance, ties on limb 0 alone
+    across all lanes, and ties on limbs 0..3 between the two candidates
+    of one thread (lanes L and L+32) (uint32 numpy; Q >= 224)."""
     rows = rng.integers(0, 2**32, size=(Q, 5 * 194), dtype=np.uint32)
     q8 = rng.integers(0, 2**32, size=(Q, 8), dtype=np.uint32)
     b = rng.integers(0, 193, size=Q).astype(np.int32)
@@ -124,13 +134,42 @@ def edge_window_inputs(rng, Q):
     planes[64:128, :, 1:40] = planes[64:128, :, 1:2]
     b[4:128] = 192
     planes[128:160, :, 1:4] = ~q8[128:160, :5, None]
+    planes[160:192, 0, 1:] = planes[160:192, 0, 1:2]
+    planes[192:224, :4, 33:65] = planes[192:224, :4, 1:33]
+    b[160:224] = 192
     return rows, q8, np.repeat(b[:, None], 8, axis=1)
 
 
+def row_index_inputs(rng, q8_rows, b_rows, Q):
+    """Queries on rows of the edge table: a quarter on one full-tie row,
+    64 each on the first and last rows, the rest random.  Half take their
+    row's own query limbs and bounds (so all-ones rows stay all-ones);
+    four take bounds 0, 1, 191, 192 (uint32 / int32 numpy)."""
+    NB = q8_rows.shape[0]
+    ri = rng.integers(0, NB, size=Q).astype(np.int32)
+    ri[:Q // 4] = 5
+    ri[Q // 4:Q // 4 + 64] = 0
+    ri[Q // 4 + 64:Q // 4 + 128] = NB - 1
+    q8 = rng.integers(0, 2**32, size=(Q, 8), dtype=np.uint32)
+    b = np.repeat(rng.integers(0, 193, size=Q).astype(np.int32)[:, None], 8,
+                  axis=1)
+    own = rng.random(Q) < 0.5
+    q8[own], b[own] = q8_rows[ri[own]], b_rows[ri[own]]
+    b[Q // 2:Q // 2 + 4] = np.array([0, 1, 191, 192], np.int32)[:, None]
+    return ri, q8, b
+
+
 def edge_lex_inputs(rng, Q, W):
+    """Distances with duplicate ids, exhaustion, rows with nothing valid,
+    random invalid masks, ties on limb 0 alone, and ties on limbs 0..3
+    between positions p and p+32 (one thread's two candidates, W >= 64);
+    Q >= 384."""
     q = rng.integers(0, 2**32, size=(Q, 5), dtype=np.uint32)
     t = rng.integers(0, 2**32, size=(Q, W, 5), dtype=np.uint32)
     t[:64] = t[:64, :1]                             # duplicate ids
+    t[256:320, :, 0] = t[256:320, :1, 0]
+    if W >= 64:
+        t[320:384, 32:64, :4] = t[320:384, :32, :4]
     inv = np.zeros((Q, W), np.int32)
     inv[64:128, 5:] = 1                             # exhaustion after 5
     inv[128:160] = 1                                # nothing valid
@@ -203,7 +242,18 @@ def main(argv=None) -> int:
         e = max_abs_err(got, want)
         err["window_select"] = max(err["window_select"], e)
         checked["window_select"].append({"Q": 4096, "k": k, "err": e})
-    for W in (32, 128, 256):
+    ri_np, rq_np, rb_np = row_index_inputs(rng, q8_np, b_np, 8192)
+    ri, rq, rb = (torch.from_numpy(ri_np).to(dev), IK.to_keys(rq_np, dev),
+                  torch.from_numpy(rb_np).to(dev))
+    for k in (1, 8, 16, 21):
+        got = window_select(wr, rq, rb, k=k, row_index=ri)
+        sync()
+        want = window_select_plain(wr, rq, rb, k=k, row_index=ri)
+        e = max_abs_err(got, want)
+        err["window_select"] = max(err["window_select"], e)
+        checked["window_select"].append({"Q": 8192, "NB": 4096, "k": k,
+                                         "row_index": True, "err": e})
+    for W in (32, 128, 256, 1024):
         dist_np, inv_np = edge_lex_inputs(rng, 1024, W)
         d, i = IK.to_keys(dist_np, dev), torch.from_numpy(inv_np).to(dev)
         for k in (8, 16):
@@ -293,18 +343,22 @@ def main(argv=None) -> int:
                                                         "numpy": 32}})
 
     # main-path parity: the kernels on the main path's own inputs
-    rows_t, start = ST.expanded_window(snap.sorted_ids, snap._expanded,
-                                       snap.n_valid, qk)
+    expanded = snap._expanded
+    j, start = ST.expanded_window(snap.sorted_ids, expanded, snap.n_valid,
+                                  qk)
     q8 = torch.nn.functional.pad(qk, (0, 3))
     bounds = torch.clamp(snap.n_valid - start, 0, 192)[:, None] \
         .expand(-1, 8).contiguous()
     for k in (16, 8):
-        got = window_select(rows_t, q8, bounds, k=k)
+        got = window_select(expanded, q8, bounds, k=k, row_index=j)
         sync()
-        e = max_abs_err(got, window_select_plain(rows_t, q8, bounds, k=k))
+        e = max_abs_err(got, window_select_plain(expanded, q8, bounds, k=k,
+                                                 row_index=j))
         err["window_select"] = max(err["window_select"], e)
         checked["window_select"].append({"Q": args.q, "k": k, "err": e,
+                                         "row_index": True,
                                          "main_path": True})
+    rows_t = expanded[j]      # gathered rows: timing comparison only
     dist_w, inv_w, _, _ = ST.window_candidates(snap.sorted_ids, snap.n_valid,
                                                qk, window=128)
     for k in (16, 8):
@@ -323,23 +377,37 @@ def main(argv=None) -> int:
     cuda = dev.type == "cuda"
     Q = args.q
     timing = {}
+    NB = expanded.shape[0]
     for k in (16, 8):
         timing[f"window_select_k{k}"] = {
-            "ms": median_ms(lambda: window_select(rows_t, q8, bounds, k=k),
+            "ms": median_ms(lambda: window_select(expanded, q8, bounds, k=k,
+                                                  row_index=j),
                             inner=5, cuda=cuda),
             "plain_ms": median_ms(
-                lambda: window_select_plain(rows_t, q8, bounds, k=k),
+                lambda: window_select_plain(expanded, q8, bounds, k=k,
+                                            row_index=j),
                 reps=5, cuda=cuda),
+            # the same kernel on rows gathered first (row_index=None)
+            "gathered_rows_ms": median_ms(
+                lambda: window_select(rows_t, q8, bounds, k=k),
+                inner=5, cuda=cuda),
             "fast3_select_ms": median_ms(
-                lambda: ST.expanded_select(rows_t, qk, start, snap.n_valid,
-                                           k=k, select="fast3"),
+                lambda: ST.expanded_select(expanded, j, qk, start,
+                                           snap.n_valid, k=k,
+                                           select="fast3"),
                 reps=5, cuda=cuda),
             "kernel_select_ms": median_ms(
-                lambda: ST.expanded_select(rows_t, qk, start, snap.n_valid,
-                                           k=k, select="kernel"),
+                lambda: ST.expanded_select(expanded, j, qk, start,
+                                           snap.n_valid, k=k,
+                                           select="kernel"),
                 inner=5, cuda=cuda),
-            "bytes": Q * (970 + 8 + 8 + 128) * 4,
-            "ops": Q * (5 * 192 + k * 6 * 192 * 2)}
+            # the table once, plus row_index, queries8, bounds and out
+            "bytes": NB * 970 * 4 + Q * (1 + 8 + 8 + 128) * 4,
+            # context, not the bound: every query's row read on its own
+            "row_read_bytes": Q * 970 * 4,
+            # XORs, the local-best scans (~10 ops per 5-limb compare) and
+            # per round the winner's rescan plus ~2 warp-wide operations
+            "ops": Q * (5 * 192 + 10 * 192 + k * (10 * 6 + 64))}
         timing[f"lex_topk_select_k{k}"] = {
             "ms": median_ms(lambda: lex_topk_select(dist_w, inv_w, k=k),
                             inner=5, cuda=cuda),
@@ -347,9 +415,15 @@ def main(argv=None) -> int:
                 lambda: lex_topk_select_plain(dist_w, inv_w, k=k),
                 reps=5, cuda=cuda),
             "bytes": Q * 128 * (5 * 4 + 4) + Q * k * 4,
-            "ops": Q * k * 6 * 128 * 2}
+            "ops": Q * (10 * 128 + k * (10 * 4 + 64))}
         timing[f"find_closest_k{k}_ms"] = host_median_ms(
             lambda: table.find_closest(targets, k=k, now=0.0))
+    # what reading rows in place removes from the main path
+    timing["row_gather_ms"] = median_ms(lambda: expanded[j], inner=5,
+                                        cuda=cuda)
+    for name in ("window_select", "lex_topk_select"):
+        timing[f"{name}_k16_over_k8"] = (timing[f"{name}_k16"]["ms"]
+                                         / timing[f"{name}_k8"]["ms"])
     timing["lookup_topk_window128_k16_ms"] = host_median_ms(
         lambda: (ST.lookup_topk(snap.sorted_ids, snap.n_valid, qk, k=16,
                                 window=128, expanded=None), sync()))
@@ -381,6 +455,25 @@ def main(argv=None) -> int:
           "top_device": [{"name": e.key[:80], "calls": e.count,
                           "device_ms": e.self_device_time_total / 1e3}
                          for e in top[:12]]})
+
+    # -- 7. memory ---------------------------------------------------------
+    del rows_t
+    gathered_bytes = Q * 970 * 4
+    peak_extra = "not measured"
+    if cuda:
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        table.find_closest(targets, k=16, now=0.0)
+        sync()
+        peak_extra = torch.cuda.max_memory_allocated() - base
+    emit({"phase": "memory", **card, "call": "find_closest k=16", "q": Q,
+          "peak_extra_bytes": peak_extra,
+          "gathered_rows_bytes": gathered_bytes})
+    if cuda:
+        require(peak_extra < gathered_bytes,
+                f"find_closest k=16 allocated {peak_extra} B at peak, not "
+                f"below the {gathered_bytes} B of gathered rows")
 
     kernels = []
     for name, src_line in (("window_select",

@@ -5,9 +5,9 @@ Hand port of the JAX package's Pallas kernel
 ``opendht_tpu/ops/pallas_select.py`` ``lex_topk_select``
 (``_select_kernel``) as CUDA for Hopper (``csrc/select_kernels.cu``
 ``lex_select_kernel``, one warp per query, ``W ≤ 1024``).  Per rank it
-narrows the live candidates limb by limb to those minimal on limbs 0..i,
-takes the smallest window position among the survivors and retires it.
-Exact by construction, so it needs no certificate of its own.
+takes the live candidate smallest in the order (limb 0, …, limb 4,
+window position) and retires it.  Exact by construction, so it needs no
+certificate of its own.
 
 Contract:
 
@@ -15,11 +15,13 @@ Contract:
   invalid bool or int [Q, W]; nonzero positions are never selected
   → int32 [Q, k] window positions, -1 once the valid positions run out.
 
-What bounds it on the card: it reads 24 B per candidate (five limbs and
-the invalid flag) once and writes 4·k B per query; the compare/min work
-is about k·6·W operations per query, so it is meant to be memory-bound.
-Candidates stay in registers (W/32 per thread) and every minimum is one
-warp reduction, so each distance is read from device memory once.
+What bounds it on the card: device memory.  It reads 24 B per candidate
+(five limbs and the invalid flag) once and writes 4·k B per query.  Each
+warp reads its query's W·5 contiguous words with coalesced loads through
+a small shared-memory stage, keeps W/32 candidates per thread in
+registers as sorted (limb 0, position) keys, and takes each rank with
+the select core shared with ``window_select``: one warp reduction, two
+ballots and a register shift per rank.
 """
 
 from __future__ import annotations

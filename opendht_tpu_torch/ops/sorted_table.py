@@ -15,10 +15,11 @@ Two routes, as in the JAX package:
   slice element by element, select the top k (``sort`` = stable 7-key
   lexsort, ``kernel`` = the CUDA ``lex_topk_select``).
 - ``expanded_topk``: the table is pre-expanded into overlapping stride-64
-  rows (``expand_table``), so one row gather per query fetches its
-  192-lane window plus the certificate neighbours; the select is ``sort``,
+  rows (``expand_table``), so one row of it holds a query's 192-lane
+  window plus the certificate neighbours; the select is ``sort``,
   ``fast3`` (3-key sort with a tie check folded into the certificate) or
-  ``kernel`` (the CUDA ``window_select``).
+  ``kernel`` (the CUDA ``window_select``, which reads the row in place;
+  the other selects gather the rows first).
 
 ``select="kernel"`` is the counterpart of the JAX package's ``"pallas"``.
 ``"auto"`` resolves per device: on CUDA tensors both routes take
@@ -263,7 +264,7 @@ def _window_certificate(queries, cp_k, kth_valid, left_ids, right_ids,
 
 
 # ---------------------------------------------------------------------------
-# Expanded-table route: the window fetch as ONE row gather per query.
+# Expanded-table route: each query's window is ONE row of the expansion.
 #
 #   expanded[j] = sorted rows [64·j - 1, 64·j + 193) in limb-planar order
 #
@@ -308,19 +309,23 @@ def expand_table(sorted_ids, *, stride: int = EXPAND_STRIDE):
     return torch.cat(planes, dim=1)
 
 
-def expanded_select(rows, queries, start, n_valid, *, k: int,
+def expanded_select(expanded, j, queries, start, n_valid, *, k: int,
                     select: str):
-    """In-window select of :func:`expanded_topk` on gathered rows.
+    """In-window select of :func:`expanded_topk`: query q's window is row
+    ``j[q]`` of ``expanded``.
 
-    ``rows`` [Q, 5·(3s+2)] expanded rows, ``start`` [Q] int32 window
-    starts.  Returns (top_dist [Q,k,5] keys, top_idx [Q,k] int32 sorted
-    rows, valid_k [Q,k] bool, tie [Q] bool or None) — ``tie`` is fast3's
+    ``expanded`` [NB, 5·(3s+2)] from :func:`expand_table`, ``j`` [Q]
+    int32 rows, ``start`` [Q] int32 window starts.  ``"kernel"`` hands
+    ``(expanded, j)`` to ``window_select``, which reads each row in place
+    on the card; ``"sort"`` and ``"fast3"`` gather the rows first.
+    Returns (top_dist [Q,k,5] keys, top_idx [Q,k] int32 sorted rows,
+    valid_k [Q,k] bool, tie [Q] bool or None) — ``tie`` is fast3's
     adjacent (d0, d1) tie flag among the first k+1 valid rows.
     """
-    Q = rows.shape[0]
-    erow = rows.shape[1] // N_LIMBS
+    Q = j.shape[0]
+    erow = expanded.shape[1] // N_LIMBS
     wlen = erow - 2
-    dev = rows.device
+    dev = queries.device
     nv = torch.as_tensor(n_valid, dtype=_I32).to(dev)
     if select == "kernel":
         if erow != _EROW:
@@ -328,7 +333,8 @@ def expanded_select(rows, queries, start, n_valid, *, k: int,
                              f"stride {EXPAND_STRIDE}")
         q8 = torch.nn.functional.pad(queries, (0, 8 - N_LIMBS))
         bounds = torch.clamp(nv - start, 0, wlen)[:, None].expand(Q, 8)
-        packed = window_select(rows, q8, bounds.contiguous(), k=k)
+        packed = window_select(expanded, q8, bounds.contiguous(), k=k,
+                               row_index=j)
         local = packed[:, N_LIMBS * k:(N_LIMBS + 1) * k]
         gidx = start[:, None] + local
         valid_k = (local < wlen) & (gidx < nv)
@@ -339,6 +345,7 @@ def expanded_select(rows, queries, start, n_valid, *, k: int,
         return top_dist, torch.where(valid_k, gidx, -1), valid_k, None
     if select not in ("sort", "fast3"):
         raise ValueError(f"expanded_topk: unknown select {select!r}")
+    rows = expanded[j]
     d = [rows[:, l * erow + 1:(l + 1) * erow - 1] ^ queries[:, l:l + 1] ^ FLIP
          for l in range(N_LIMBS)]                           # 5 × [Q, 3s]
     gr = start[:, None] + torch.arange(wlen, dtype=_I32, device=dev)[None, :]
@@ -381,13 +388,12 @@ def expanded_topk(sorted_ids, expanded, n_valid, queries, *, k: int = 8,
     erow = expanded.shape[1] // N_LIMBS      # lanes per limb plane = 3s+2
     wlen = erow - 2                          # candidate window rows = 3s
     nv = torch.as_tensor(n_valid, dtype=_I32).to(queries.device)
-    rows, start = expanded_window(sorted_ids, expanded, nv, queries,
-                                  lut=lut, lut_steps=lut_steps)
-    left_ids = rows[:, 0::erow][:, :N_LIMBS]
-    right_ids = rows[:, erow - 1::erow][:, :N_LIMBS]
+    j, start = expanded_window(sorted_ids, expanded, nv, queries,
+                               lut=lut, lut_steps=lut_steps)
+    left_ids, right_ids = certificate_neighbours(expanded, j)
 
     top_dist, top_idx, valid_k, tie = expanded_select(
-        rows, queries, start, nv, k=k, select=select)
+        expanded, j, queries, start, nv, k=k, select=select)
     kth_ids = xor_ids(queries, top_dist[:, k - 1])
     certified = _window_certificate(
         queries, common_bits(queries, kth_ids), valid_k[:, k - 1],
@@ -399,9 +405,9 @@ def expanded_topk(sorted_ids, expanded, n_valid, queries, *, k: int = 8,
 
 def expanded_window(sorted_ids, expanded, n_valid, queries, *, lut=None,
                     lut_steps=None):
-    """Position each query and fetch its expanded row (one row gather).
-    Returns (rows [Q, 5·(3s+2)], start [Q] int32 window starts) — the
-    input of :func:`expanded_select`."""
+    """Position each query on the expanded table.  Returns (j [Q] int32
+    row of ``expanded`` holding the query's window, start [Q] int32 window
+    starts) — the input of :func:`expanded_select`."""
     if expanded.shape[1] % N_LIMBS:
         raise ValueError(f"expanded width {expanded.shape[1]} is not a "
                          f"multiple of {N_LIMBS} limb planes")
@@ -422,7 +428,19 @@ def expanded_window(sorted_ids, expanded, n_valid, queries, *, lut=None,
     j = torch.minimum(
         torch.clamp(torch.div(pos - stride, stride, rounding_mode="floor"),
                     min=0), jmax)
-    return expanded[j], j * stride
+    return j, j * stride
+
+
+def certificate_neighbours(expanded, j):
+    """Left and right certificate neighbours of each query's window:
+    lanes 0 and 3s+1 of every limb plane of row ``j[q]``, fetched as one
+    10-column gather (not the whole row).  Returns (left [Q,5], right
+    [Q,5]) id keys."""
+    erow = expanded.shape[1] // N_LIMBS
+    planes = torch.arange(N_LIMBS, device=j.device) * erow
+    cols = torch.cat([planes, planes + erow - 1])
+    nbrs = expanded[j.long()[:, None], cols[None, :]]
+    return nbrs[:, :N_LIMBS], nbrs[:, N_LIMBS:]
 
 
 def scan_tile(n_rows: int, q: int) -> int:

@@ -1,34 +1,39 @@
-"""Fused window top-k select over expanded-table rows — the main path's
+"""Fused window top-k select over the expanded table — the main path's
 kernel.
 
 Hand port of the JAX package's Pallas kernel
 ``opendht_tpu/ops/pallas_window_topk.py`` ``window_select`` (``_kernel``)
 as CUDA for Hopper (``csrc/select_kernels.cu`` ``window_select_kernel``,
-one warp per query, built by ``ops/_build.py``).  Given the limb-planar
-[Q, 5·194] row each query fetched from the stride-64 expanded table, it
-XORs the 192 window lanes with the query, sets lanes at or past the
-query's bound to all-ones, and extracts the k lexicographically smallest
-distances by progressive-mask min-extraction: the minimum of limb 0 over
-the remaining lanes, then limbs 1..4 over the lanes still tied, then the
-smallest lane among full 160-bit ties.  A ``rem`` mask keeps an extracted
-winner from coming back; an exhausted slot reports lane 192, which the
-caller turns into -1 (``sorted_table.expanded_select``).
+one warp per query, built by ``ops/_build.py``).  Query q reads row
+``row_index[q]`` of the limb-planar stride-64 expanded table where it
+lies, XORs the 192 window lanes with the query, leaves lanes at or past
+the query's bound out, and extracts the k lexicographically smallest
+distances in the order (limb 0, …, limb 4, lane).  An exhausted slot
+reports lane 192, which the caller turns into -1
+(``sorted_table.expanded_select``).
 
 Contract (the JAX kernel's packed layout, in the port's key domain):
 
-  rows     int32 [Q, 970] id keys (``ops/ids.py``), limb-planar
-  queries8 int32 [Q, 8]   query keys in cols 0..4 (cols 5..7 ignored)
-  bounds   int32 [Q, 8]   col 0 = valid window lanes, in [0, 192]
+  expanded  int32 [NB, 970] id keys (``ops/ids.py``), limb-planar rows
+  queries8  int32 [Q, 8]   query keys in cols 0..4 (cols 5..7 ignored)
+  bounds    int32 [Q, 8]   col 0 = valid window lanes, in [0, 192]
+  row_index int32 [Q]      row of ``expanded`` each query reads, in
+            [0, NB); None = row q (then NB == Q, the JAX kernel's
+            contract on gathered rows)
   → int32 [Q, 128]: cols [l·k, (l+1)·k) = key of distance limb l of the
     winners, cols [5k, 6k) = their local lane (192 = none), the rest 0.
 
 k ≤ 21 (six k-wide column groups fit 128 lanes); stride 64 only.
 
-What bounds it on the card: it reads 3.9 KB per query and writes 512 B;
-the compare/min work is about k·6·192 operations per query, so it is
-meant to be bound by memory traffic.  Its design keeps every candidate
-in registers (6 lanes per thread) and every cross-lane minimum is one
-warp reduction, so the window is read once from device memory.
+What bounds it on the card: its byte bound is the expanded table read
+once plus 580 B per query, but at k=16 the k rounds are bound by
+instruction issue (``PERF.md``).  The TPU kernel needed the rows
+gathered first (Mosaic's aligned-slice rule,
+``opendht_tpu/ops/sorted_table.py:32-42``); here the warp reads the row
+in place, so no [Q, 970] temporary is written and read back.  Each lane
+sorts its six candidates once by limb 0, and a round costs one warp
+reduction, two ballots and a register shift (the select core in the
+source); limbs 1..4 are read only on ties and for the k winners.
 """
 
 from __future__ import annotations
@@ -43,35 +48,50 @@ WIN = 192
 OUT_LANES = 128
 
 
-def _check(rows, queries8, bounds, k):
+def _check(expanded, queries8, bounds, k, row_index):
     if k < 1 or k * (N_LIMBS + 1) > OUT_LANES:
         raise ValueError(f"k={k} does not fit the packed 128-lane output")
-    Q = rows.shape[0]
-    for name, t, cols in (("rows", rows, N_LIMBS * EROW),
-                          ("queries8", queries8, 8), ("bounds", bounds, 8)):
-        if t.dtype != torch.int32 or tuple(t.shape) != (Q, cols):
-            raise ValueError(f"{name}: want int32 [{Q}, {cols}], got "
+    Q = queries8.shape[0]
+    NB = expanded.shape[0] if row_index is not None else Q
+    for name, t, shape in (("expanded rows", expanded,
+                            (NB, N_LIMBS * EROW)),
+                           ("queries8", queries8, (Q, 8)),
+                           ("bounds", bounds, (Q, 8)),
+                           ("row_index", row_index, (Q,))):
+        if t is None:
+            continue
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want int32 {list(shape)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-        if t.device != rows.device:
-            raise ValueError(f"{name} is on {t.device}, rows on {rows.device}")
+        if t.device != expanded.device:
+            raise ValueError(f"{name} is on {t.device}, expanded on "
+                             f"{expanded.device}")
 
 
-def window_select(rows, queries8, bounds, *, k: int = 16) -> torch.Tensor:
-    """Exact top-k over limb-planar window rows (contract above).  On a
-    CPU tensor it runs :func:`window_select_plain`; on a CUDA tensor it
+def window_select(expanded, queries8, bounds, *, k: int = 16,
+                  row_index=None) -> torch.Tensor:
+    """Exact top-k over window rows of ``expanded`` (contract above).  On
+    a CPU tensor it runs :func:`window_select_plain`; on a CUDA tensor it
     launches the kernel or raises."""
-    _check(rows, queries8, bounds, k)
-    if rows.device.type == "cpu":
-        return window_select_plain(rows, queries8, bounds, k=k)
-    if rows.device.type != "cuda":
-        raise ValueError(f"window_select: unsupported device {rows.device}")
-    rows, queries8, bounds = (t.contiguous() for t in (rows, queries8, bounds))
-    out = torch.empty((rows.shape[0], OUT_LANES), dtype=torch.int32,
-                      device=rows.device)
-    fn = _build.function("select_kernels", "window_select_launch", 4, 2)
-    with torch.cuda.device(rows.device):
-        err = fn(rows.data_ptr(), queries8.data_ptr(), bounds.data_ptr(),
-                 out.data_ptr(), rows.shape[0], k,
+    _check(expanded, queries8, bounds, k, row_index)
+    if expanded.device.type == "cpu":
+        return window_select_plain(expanded, queries8, bounds, k=k,
+                                   row_index=row_index)
+    if expanded.device.type != "cuda":
+        raise ValueError(f"window_select: unsupported device "
+                         f"{expanded.device}")
+    expanded, queries8, bounds = (t.contiguous()
+                                  for t in (expanded, queries8, bounds))
+    if row_index is not None:
+        row_index = row_index.contiguous()   # held until the launch
+    Q = queries8.shape[0]
+    out = torch.empty((Q, OUT_LANES), dtype=torch.int32,
+                      device=expanded.device)
+    fn = _build.function("select_kernels", "window_select_launch", 5, 2)
+    with torch.cuda.device(expanded.device):
+        err = fn(expanded.data_ptr(),
+                 0 if row_index is None else row_index.data_ptr(),
+                 queries8.data_ptr(), bounds.data_ptr(), out.data_ptr(), Q, k,
                  torch.cuda.current_stream().cuda_stream)
     _build.check(err, "window_select")
     window_select.launches += 1
@@ -81,10 +101,13 @@ def window_select(rows, queries8, bounds, *, k: int = 16) -> torch.Tensor:
 window_select.launches = 0
 
 
-def window_select_plain(rows, queries8, bounds, *, k: int = 16):
-    """The same function in torch ops (the CPU path, and the reference the
-    kernel is held to on the card)."""
-    _check(rows, queries8, bounds, k)
+def window_select_plain(expanded, queries8, bounds, *, k: int = 16,
+                        row_index=None):
+    """The same function in torch ops on gathered rows
+    ``expanded[row_index]`` (the CPU path, and the reference the kernel is
+    held to on the card)."""
+    _check(expanded, queries8, bounds, k, row_index)
+    rows = expanded if row_index is None else expanded[row_index.long()]
     Q = rows.shape[0]
     iota = torch.arange(WIN, dtype=torch.int32, device=rows.device)[None, :]
     valid = iota < bounds[:, 0:1]
