@@ -2,7 +2,8 @@
 """Drive the torch port (opendht_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py                 # the full run on the card
-    python3 chip_smoke.py --cpu --n 20000 --q 512   # rehearsal, no card
+    python3 chip_smoke.py --cpu --n 20000 --q 512 \
+        --search-n 20000 --search-q 256 --search-waves 2   # rehearsal
 
 Phases, one JSON line each:
 
@@ -36,6 +37,25 @@ Phases, one JSON line each:
              beyond what was allocated before it (the snapshot's expansion
              already built); fails unless it is below the Q·970·4 bytes that
              gathered [Q, 970] rows alone would take.
+8. search  — BASELINE config 3: 10,000,000 seeded ids sorted on the card
+             with the LUT at default_lut_bits (24), then 16 waves of
+             65,536 seeded targets through simulate_lookups at α=3, k=8,
+             state_limbs=2 (1,048,576 lookups).  Checks: wave 0 equals
+             the same engine on the CPU for its first 512 rows (same
+             global query ids and batch size); state_limbs=5 gives the
+             same wave; the three tests/goldens/search_engine.json hashes
+             on the card; recall ≥ 0.95 against xor_topk on 256 rows;
+             every lookup converged.  Reports hops, the wave time (CUDA
+             events, waves in turn), lookups/s, rounds and ms per round,
+             the host-clock time of all waves, the sort+LUT time, the
+             engine's host syncs per wave, and a torch.profiler pass over
+             one wave by round stage (search.select / reply / gather /
+             merge / done / sync) and by op.
+9. maintenance — BASELINE config 4: maintenance_sweep over 10,000,000
+             seeded ids with seeded reply times (a quarter never replied)
+             equal to a numpy oracle (np.bincount, np.maximum.at in
+             float32), every refresh target in its bucket; CUDA-event
+             median of the sweep.  (--search-n sizes both phases.)
 
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failure raises (nonzero exit, no ok line).  Without a card it exits
@@ -46,11 +66,14 @@ with the plain versions and also ends without the ok line.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
+from pathlib import Path
 
 import numpy as np
 
@@ -177,10 +200,267 @@ def edge_lex_inputs(rng, Q, W):
     return q[:, None, :] ^ t, inv
 
 
+CONFIG3 = dict(alpha=3, k=8, state_limbs=2)     # BASELINE.json config 3
+OUT_KEYS = ("nodes", "hops", "converged", "dist")
+GOLDENS = Path(__file__).resolve().parent / "tests" / "goldens" \
+    / "search_engine.json"
+
+
+def outputs_np(out) -> dict:
+    """simulate_lookups' tensors as the JAX package's numpy arrays."""
+    from opendht_tpu_torch.ops.ids import from_keys
+    return {key: (from_keys(out[key]) if key == "dist"
+                  else out[key].cpu().numpy()) for key in OUT_KEYS}
+
+
+def same_outputs(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[key], b[key]) for key in OUT_KEYS)
+
+
+def golden_hashes(dev) -> dict:
+    """sha256 of the engine's outputs in the three modes of
+    tests/goldens/search_engine.json, run on ``dev``."""
+    from opendht_tpu_torch.core.search import simulate_lookups
+    from opendht_tpu_torch.ops.ids import to_keys
+    from opendht_tpu_torch.ops.sorted_table import sort_table
+    rng = np.random.default_rng(1234)
+    ids = rng.integers(0, 2**32, size=(4096, 5), dtype=np.uint32)
+    targets = to_keys(rng.integers(0, 2**32, size=(96, 5), dtype=np.uint32),
+                      dev)
+    s, _, n = sort_table(to_keys(ids, dev))
+    hashes = {}
+    for tag, kw in (("lut_l5", {}), ("lut_l2", {"state_limbs": 2}),
+                    ("exact_l5", {"block_mode": "exact"})):
+        out = outputs_np(simulate_lookups(s, n, targets, seed=99,
+                                          device=dev, **kw))
+        h = hashlib.sha256()
+        for key in OUT_KEYS:
+            h.update(np.ascontiguousarray(out[key]).tobytes())
+        hashes[tag] = h.hexdigest()
+    return hashes
+
+
+def search_phase(args, dev, card, sync) -> None:
+    """BASELINE config 3: ``--search-waves`` waves of ``--search-q``
+    lookups at α=3, k=8, state_limbs=2 against ``--search-n`` seeded ids
+    sorted on the device, with the LUT at default_lut_bits(N); checks,
+    timing and a per-round profile (see the module docstring)."""
+    import torch
+    from opendht_tpu_torch.core import search as SE
+    from opendht_tpu_torch.ops import ids as IK
+    from opendht_tpu_torch.ops import sorted_table as ST
+    from opendht_tpu_torch.ops.xor_topk import xor_topk
+    cuda = dev.type == "cuda"
+    N, Q, W = args.search_n, args.search_q, args.search_waves
+    rng = np.random.default_rng(args.seed + 3)
+    ids = IK.to_keys(rng.integers(0, 2**32, size=(N, 5), dtype=np.uint32),
+                     dev)
+    targets = IK.to_keys(rng.integers(0, 2**32, size=(W, Q, 5),
+                                      dtype=np.uint32), dev)
+    sync()
+    t0 = time.perf_counter()
+    sorted_ids, _perm, n_valid = ST.sort_table(ids)
+    bits = ST.default_lut_bits(N)
+    lut = ST.build_prefix_lut(sorted_ids, n_valid, bits=bits)
+    sync()
+    sort_lut_s = time.perf_counter() - t0
+    del ids, _perm
+    n = int(n_valid)
+    kw = dict(CONFIG3, lut=lut, seed=args.seed)
+
+    def wave(w, **extra):
+        return SE.simulate_lookups(sorted_ids, n, targets[w], device=dev,
+                                   **{**kw, **extra})
+
+    t0 = time.perf_counter()
+    outs = [wave(w) for w in range(W)]
+    sync()
+    all_waves_s = time.perf_counter() - t0
+    outs = [outputs_np(o) for o in outs]
+    hops = np.concatenate([o["hops"] for o in outs])
+    converged = np.concatenate([o["converged"] for o in outs])
+
+    # (a) the card's wave 0 == the same engine on the CPU, first rows:
+    # same table and LUT, same global query ids and batch size
+    rows = min(512, Q)
+    gp, lower, bb = SE.table_primitives(sorted_ids.cpu(), n, lut.cpu())
+    ref = outputs_np(SE._lookup_engine(
+        gp, lower, n, targets[0, :rows].cpu(),
+        torch.arange(rows, dtype=torch.int32), Q, args.seed & 0xFFFFFFFF,
+        k=CONFIG3["k"], alpha=CONFIG3["alpha"],
+        search_nodes=SE.SEARCH_NODES, max_hops=48,
+        state_limbs=CONFIG3["state_limbs"], block_bounds=bb))
+    require(same_outputs({k: v[:rows] for k, v in outs[0].items()}, ref),
+            f"wave 0 on the device == the CPU engine on its first {rows} "
+            "rows")
+    # (b) state_limbs=2 == state_limbs=5
+    require(same_outputs(outs[0], outputs_np(wave(0, state_limbs=5))),
+            "state_limbs=2 == state_limbs=5 on wave 0")
+    # (c) the committed reply-stream goldens, run on the device
+    with open(GOLDENS) as f:
+        gold = json.load(f)
+    hashes = golden_hashes(dev)
+    require(all(hashes[t] == gold[t]["sha256"] for t in hashes),
+            "the three search_engine.json goldens on the device")
+    # (d) recall against the exact xor_topk
+    nr = min(256, Q)
+    _, ei = xor_topk(targets[0, :nr], sorted_ids, k=8,
+                     tile=ST.scan_tile(N, nr),
+                     valid=torch.arange(N, device=dev) < n)
+    ei = ei.cpu().numpy()
+    recall = float(np.mean([len(set(outs[0]["nodes"][i]) & set(ei[i])) / 8
+                            for i in range(nr)]))
+    require(recall >= 0.95, f"recall {recall} >= 0.95 against xor_topk")
+    # (e) every lookup converged
+    require(bool(converged.all()), "every lookup converged")
+
+    # timing: the whole call, the waves in turn (CUDA events)
+    turn = iter(range(10**9))
+    wave_ms = median_ms(lambda: wave(next(turn) % W), reps=5, warmup=1,
+                        cuda=cuda)
+    syncs = "not measured"
+    if cuda:
+        # the engine's own device→host syncs in one wave
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                SE._simulate_lookups(sorted_ids, n, targets[0], **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+
+    # one wave under the profiler: time by round stage and by op
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        s = time.perf_counter()
+        wave(min(1, W - 1))
+        sync()
+        wall_ms = (time.perf_counter() - s) * 1e3
+    ka = prof.key_averages()
+
+    def ms(e, self_only=False):
+        if cuda:
+            return (e.self_device_time_total if self_only
+                    else e.device_time_total) / 1e3
+        return (e.self_cpu_time_total if self_only
+                else e.cpu_time_total) / 1e3
+
+    stages = {e.key: {"calls": e.count, "ms": ms(e)} for e in ka
+              if e.key.startswith("search.")
+              and e.device_type != torch.autograd.DeviceType.CUDA}
+    rounds = stages.get("search.select", {}).get("calls", 0)
+    kern = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("search.", "dht_"))]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    ops = sorted((e for e in ka if e.key.startswith("aten::")),
+                 key=lambda e: ms(e, True), reverse=True)[:12]
+    emit({"phase": "search", **card, "config": "BASELINE.json config 3",
+          "n": N, "q": Q, "waves": W, "lookups": W * Q, **CONFIG3,
+          "lut_bits": bits, "sort_and_lut_s": sort_lut_s,
+          "all_waves_host_s": all_waves_s, "wave_ms": wave_ms,
+          "lookups_per_s": Q / wave_ms * 1e3,
+          "hops_p50": float(np.percentile(hops, 50)),
+          "hops_p95": float(np.percentile(hops, 95)),
+          "hops_max": int(hops.max()), "rounds_per_wave": rounds,
+          "ms_per_round": wave_ms / rounds if rounds else None,
+          "host_syncs_per_wave": syncs,
+          "checks": {"cpu_rows_identical": rows, "state_limbs_2_eq_5": True,
+                     "goldens": list(hashes), "recall": recall,
+                     "recall_rows": nr,
+                     "converged": int(converged.sum())},
+          "profile": {"wall_ms": wall_ms,
+                      "device_ms": dev_ms if cuda else "not measured",
+                      "device_busy_share": (dev_ms / wall_ms if cuda
+                                            else "not measured"),
+                      "time": "device" if cuda else "host (rehearsal)",
+                      "note": "wall_ms includes the profiler's overhead",
+                      "stages": stages,
+                      "top_ops": [{"name": e.key, "calls": e.count,
+                                   "self_ms": ms(e, True)} for e in ops]}})
+
+
+def clz32_np(x: np.ndarray) -> np.ndarray:
+    n = np.zeros(x.shape, np.int32)
+    for s in (16, 8, 4, 2, 1):
+        top = x < np.uint32(1 << (32 - s))
+        n += np.where(top, s, 0).astype(np.int32)
+        x = np.where(top, x << np.uint32(s), x)
+    return np.where(x == 0, 32, n)
+
+
+def common_bits_np(me: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    x = ids ^ me
+    out = np.full(x.shape[:-1], 160, np.int32)
+    prev_zero = np.ones(x.shape[:-1], bool)
+    for i in range(5):
+        first = prev_zero & (x[..., i] != 0)
+        out = np.where(first, 32 * i + clz32_np(x[..., i]), out)
+        prev_zero &= x[..., i] == 0
+    return out
+
+
+def maintenance_phase(args, dev, card) -> None:
+    """BASELINE config 4: the bucket-maintenance sweep over
+    ``--search-n`` seeded ids (2 % invalid, a quarter never replied)
+    against a numpy oracle."""
+    import torch
+    from opendht_tpu_torch.ops import ids as IK
+    from opendht_tpu_torch.ops import radix
+    N = args.search_n
+    rng = np.random.default_rng(args.seed + 4)
+    me = rng.integers(0, 2**32, size=5, dtype=np.uint32)
+    ids_np = rng.integers(0, 2**32, size=(N, 5), dtype=np.uint32)
+    valid_np = rng.random(N) > 0.02
+    now, age = 1.7e9, 600.0
+    last_np = now - rng.uniform(0, 1200, size=N)
+    last_np[rng.random(N) < 0.25] = 0.0                  # never replied
+    me_k, ids_k = IK.to_keys(me, dev), IK.to_keys(ids_np, dev)
+    valid_t = torch.from_numpy(valid_np).to(dev)
+    last_t = torch.from_numpy(last_np).to(dev)          # float64, as held
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def sweep():
+        return radix.maintenance_sweep(me_k, ids_k, valid_t, last_t, now,
+                                       age, gen, device=dev)
+
+    counts, last, stale, targets = sweep()
+    b = np.minimum(common_bits_np(me, ids_np), 159)
+    want_counts = np.bincount(b[valid_np], minlength=160)
+    lr = last_np.astype(np.float32)
+    m = valid_np & (lr > 0)
+    want_last = np.full(160, -np.inf, np.float32)
+    np.maximum.at(want_last, b[m], lr[m])
+    want_stale = (want_counts > 0) & (want_last < np.float32(now)
+                                      - np.float32(age))
+    require(np.array_equal(counts.cpu().numpy(), want_counts),
+            "sweep counts == np.bincount")
+    require(np.array_equal(last.cpu().numpy(), want_last),
+            "sweep last == np.maximum.at in float32")
+    require(np.array_equal(stale.cpu().numpy(), want_stale),
+            "sweep stale == the numpy oracle")
+    require(np.array_equal(common_bits_np(me, IK.from_keys(targets)),
+                           np.arange(160)), "every target in its bucket")
+    sweep_ms = median_ms(sweep, reps=5, cuda=dev.type == "cuda")
+    nbytes = N * (5 * 4 + 1 + 8)         # ids, valid, float64 reply times
+    emit({"phase": "maintenance", **card, "config": "BASELINE.json config 4",
+          "n": N, "sweep_ms": sweep_ms, "bytes": nbytes,
+          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+          "occupied": int((want_counts > 0).sum()),
+          "stale": int(want_stale.sum()),
+          "checks": ["counts", "last", "stale", "targets in bucket"]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="table ids")
     ap.add_argument("--q", type=int, default=131_072, help="targets")
+    ap.add_argument("--search-n", type=int, default=10_000_000,
+                    help="ids of the search and maintenance phases")
+    ap.add_argument("--search-q", type=int, default=65_536,
+                    help="lookups per search wave")
+    ap.add_argument("--search-waves", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on the host with the plain versions "
@@ -474,6 +754,9 @@ def main(argv=None) -> int:
         require(peak_extra < gathered_bytes,
                 f"find_closest k=16 allocated {peak_extra} B at peak, not "
                 f"below the {gathered_bytes} B of gathered rows")
+
+    search_phase(args, dev, card, sync)
+    maintenance_phase(args, dev, card)
 
     kernels = []
     for name, src_line in (("window_select",

@@ -1,9 +1,11 @@
 """opendht_tpu_torch — the PyTorch/CUDA port of opendht_tpu.
 
-This slice carries the batched closest-node resolve
-(``NodeTable.bulk_load`` → ``find_closest``) on an NVIDIA Hopper card:
-the sorted-window lookup in plain torch around two hand-written CUDA
-select kernels (``ops/window_select.py``, ``ops/lex_select.py``).
+It carries the batched closest-node resolve (``NodeTable.bulk_load``
+→ ``find_closest``) on an NVIDIA Hopper card: the sorted-window lookup
+in plain torch around two hand-written CUDA select kernels
+(``ops/window_select.py``, ``ops/lex_select.py``); the iterative lookup
+engine (``core/search.py`` ``simulate_lookups``); and the k-bucket
+maintenance sweep (``ops/radix.py``, ``NodeTable.maintenance_sweep``).
 
 The package imports torch and numpy only — never JAX, never
 ``opendht_tpu`` (host-only modules it needs are copied here).  Entry
@@ -14,6 +16,7 @@ there is none.
 from ._device import resolve_device
 from .infohash import InfoHash
 from .core.table import NodeTable, Snapshot, PendingLookup
+from .core.search import simulate_lookups
 
 __all__ = ["resolve_device", "InfoHash", "NodeTable", "Snapshot",
-           "PendingLookup"]
+           "PendingLookup", "simulate_lookups"]

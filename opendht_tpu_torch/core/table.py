@@ -9,15 +9,21 @@ table), the counterpart of ``RoutingTable::findClosestNodes``
 (src/routing_table.cpp:109-150) and ``NodeCache::getCachedNodes``
 (src/node_cache.cpp:41-74) batched over thousands of targets.
 
+The bucket-maintenance methods (``maintenance_sweep``,
+``stale_buckets``, ``refresh_targets``, ``network_size_estimate``) run
+``ops/radix.py`` on the table's device; the reusable maintenance key of
+the JAX package is a ``torch.Generator`` seeded once per table.
+
 Not ported yet: the churn view and background compaction.  Here
 :meth:`NodeTable.view` always returns a snapshot of the current state,
 so every mutation costs a rebuild at the next device lookup; the results
 are the same exact ones the churn view gives.  The mesh/layout (sharded)
-resolve, telemetry and the maintenance sweeps are left out too.
+resolve and the table's telemetry counters are left out too.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Optional
 
@@ -33,6 +39,7 @@ from ..ops.sorted_table import (expand_table, lookup_topk,
 
 # liveness windows (reference include/opendht/node.h:148-158)
 NODE_GOOD_TIME = 120 * 60.0       # replied within 2 h → good
+NODE_EXPIRE_TIME = 10 * 60.0      # silent for 10 min → expirable
 MAX_AUTH_ERRORS = 3               # 3 strikes → expired (node.h:73-77)
 
 TARGET_NODES = 8                  # k (routing_table.h:26)
@@ -170,6 +177,7 @@ class NodeTable:
         self._cached: dict[int, tuple[bytes, Any]] = {}
         self._version = 0
         self._snap: Optional[Snapshot] = None
+        self._maint_gen: Optional[torch.Generator] = None
 
     # ------------------------------------------------------------------ size
     def __len__(self) -> int:
@@ -475,6 +483,67 @@ class NodeTable:
                 out_rows[i, :len(order)] = rows[order]
                 out_dist[i, :len(order)] = d[i, order]
         return out_rows, out_dist
+
+    # --------------------------------------------------------- maintenance
+    def bucket_occupancy(self) -> np.ndarray:
+        return self._bucket_count.copy()
+
+    def _slab(self):
+        """(self id, ids, valid, reply times) of the slab on the device."""
+        dev = self.device
+        return (IK.to_keys(self.self_limbs, dev), IK.to_keys(self._ids, dev),
+                torch.from_numpy(self._valid).to(dev),
+                torch.from_numpy(self._time_reply).to(dev))
+
+    def stale_buckets(self, now: float,
+                      age: float = NODE_EXPIRE_TIME) -> np.ndarray:
+        """Occupied buckets with no reply within ``age`` seconds, buckets
+        whose peers never replied included (stale from birth,
+        src/routing_table.cpp:210-211).  The per-bucket last reply comes
+        from ``radix.bucket_last_seen`` (float32) and is compared on the
+        host, as in the JAX package."""
+        last = radix.bucket_last_seen(*self._slab()).cpu().numpy()
+        occupied = self._bucket_count > 0
+        return np.nonzero(occupied & (last < now - age))[0]
+
+    def _next_maint_generator(self) -> torch.Generator:
+        """The table's reusable maintenance generator, seeded once."""
+        if self._maint_gen is None:
+            self._maint_gen = torch.Generator(device=self.device)
+            self._maint_gen.manual_seed(
+                int.from_bytes(os.urandom(8), "big"))
+        return self._maint_gen
+
+    def maintenance_sweep(self, now: float, age: float = NODE_EXPIRE_TIME,
+                          generator: Optional[torch.Generator] = None):
+        """One device pass over the slab: occupancy, per-bucket staleness
+        (never-replied ⇒ stale from birth) and a refresh target in every
+        stale bucket (↔ Dht::bucketMaintenance, src/dht.cpp:1780-1838 +
+        RoutingTable::randomId).  Returns ``(stale, targets)``: stale
+        bucket indices [B] int64 and their refresh ids [B, 5] uint32."""
+        _counts, _last, stale, targets = radix.maintenance_sweep(
+            *self._slab(), now, age,
+            generator if generator is not None
+            else self._next_maint_generator(), device=self.device)
+        stale = np.nonzero(stale.cpu().numpy())[0]
+        return stale, IK.from_keys(targets)[stale]
+
+    def refresh_targets(self, buckets,
+                        generator: Optional[torch.Generator] = None
+                        ) -> np.ndarray:
+        """A random lookup target inside each given bucket
+        (↔ RoutingTable::randomId, src/routing_table.cpp:67-85) → uint32
+        [B, 5]; the table's generator unless one is given."""
+        out = radix.random_id_in_bucket(
+            IK.to_keys(self.self_limbs, self.device),
+            torch.as_tensor(np.asarray(buckets)).to(self.device),
+            generator if generator is not None
+            else self._next_maint_generator())
+        return IK.from_keys(out)
+
+    def network_size_estimate(self) -> int:
+        me, ids, valid, _ = self._slab()
+        return int(radix.estimate_network_size(me, ids, valid, k=self.k))
 
 
 def _as_limbs(targets) -> np.ndarray:

@@ -14,8 +14,10 @@ order on the ids, and the domain is closed under the XOR metric:
 ``xor_ids(a, b) = a ^ b ^ FLIP`` is the key of the distance, and
 ``xor_ids(q, dist)`` gives back the key of the id.  ``a ^ b`` alone is
 the *raw* distance bits, which is what ``clz32`` and the CUDA kernels
-read.  ``to_keys`` / ``from_keys`` convert at the numpy boundary; public
-results leave the package as uint32 numpy identical to the JAX package's.
+read.  Bit masks (``get_bit``, ``set_bit``, prefix masks) act on raw
+bits too: un-flip, mask, re-flip.  ``to_keys`` / ``from_keys`` convert
+at the numpy boundary; public results leave the package as uint32 numpy
+identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -91,6 +93,14 @@ def to_keys(u32, device=None) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int32)).to(resolve_device(device))
 
 
+def as_keys(x, device=None) -> torch.Tensor:
+    """A key tensor moved to ``device``, or uint32 ids converted with
+    :func:`to_keys` (None = cuda)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(resolve_device(device))
+    return to_keys(x, device)
+
+
 def from_keys(keys: torch.Tensor) -> np.ndarray:
     """int32 key tensor → uint32 numpy (the JAX package's representation)."""
     a = keys.detach().to("cpu", torch.int32).contiguous().numpy()
@@ -122,15 +132,13 @@ def common_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Length of the shared bit prefix of two key tensors [..., 5],
     0..160 (↔ Hash::commonBits, infohash.h:154-176).  int32 [...]."""
     x = a ^ b                                   # raw difference bits
-    out = torch.full(x.shape[:-1], ID_BITS, dtype=torch.int32,
-                     device=x.device)
-    prev_zero = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
-    for i in range(N_LIMBS):
-        xi = x[..., i]
-        first = prev_zero & (xi != 0)
-        out = torch.where(first, 32 * i + clz32(xi), out)
-        prev_zero = prev_zero & (xi == 0)
-    return out
+    nz = x != 0
+    # the first differing limb (argmax returns the first maximum), then
+    # ONE clz32 of it: a table sweep runs this over every row
+    first = nz.to(torch.uint8).argmax(dim=-1, keepdim=True)
+    cb = 32 * first[..., 0].to(torch.int32) \
+        + clz32(torch.gather(x, -1, first)[..., 0])
+    return torch.where(nz.any(dim=-1), cb, ID_BITS)
 
 
 def lex_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -143,3 +151,53 @@ def lex_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         lt = lt | (eq & (ai < bi))
         eq = eq & (ai == bi)
     return lt
+
+
+# single-bit masks of a limb, bit 0 = the MSB, as int32 bit patterns (a
+# table rather than ``1 << s``, which would shift into the int32 sign bit)
+_BIT_MASKS = (np.uint32(1) << np.arange(31, -1, -1, dtype=np.uint32)) \
+    .view(np.int32)
+
+
+def _bit_mask(nbit: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(_BIT_MASKS).to(nbit.device)[(nbit % 32).long()]
+
+
+def lowbit(a: torch.Tensor) -> torch.Tensor:
+    """Index (tree depth from the MSB) of the lowest set bit of each key
+    tensor [..., 5]; -1 when zero (↔ Hash::lowbit, infohash.h:132-143).
+    int32 [...]."""
+    raw = (a ^ FLIP).to(torch.int64) & 0xFFFFFFFF
+    out = torch.full(a.shape[:-1], -1, dtype=torch.int32, device=a.device)
+    later_zero = torch.ones(a.shape[:-1], dtype=torch.bool, device=a.device)
+    for i in range(N_LIMBS - 1, -1, -1):
+        ai = raw[..., i]
+        last = later_zero & (ai != 0)
+        # the isolated lowest bit's leading zeros = 31 - its trailing zeros
+        out = torch.where(last, 32 * i + clz32(ai & -ai), out)
+        later_zero = later_zero & (ai == 0)
+    return out
+
+
+def get_bit(a: torch.Tensor, nbit) -> torch.Tensor:
+    """Bit ``nbit`` of each key tensor [..., 5], counting from the MSB
+    (↔ Hash::getBit, infohash.h:196-202).  ``nbit`` broadcasts against
+    the batch shape and is clamped to [0, 159] like the JAX package's
+    device version.  bool [...]."""
+    nbit = torch.as_tensor(nbit, dtype=torch.int64, device=a.device) \
+        .expand(a.shape[:-1]).clamp(0, ID_BITS - 1)
+    limb = torch.gather(a ^ FLIP, -1, (nbit // 32)[..., None])[..., 0]
+    return (limb & _bit_mask(nbit)) != 0
+
+
+def set_bit(a: torch.Tensor, nbit, value) -> torch.Tensor:
+    """Key tensor ``a`` [..., 5] with bit ``nbit`` set to ``value``
+    (↔ Hash::setBit).  The mask acts on the raw bits: un-flip, mask,
+    re-flip."""
+    nbit = torch.as_tensor(nbit, dtype=torch.int64, device=a.device)
+    limb_sel = torch.arange(N_LIMBS, device=a.device) \
+        == (nbit // 32)[..., None]
+    mask = torch.where(limb_sel, _bit_mask(nbit)[..., None], 0)
+    v = torch.as_tensor(value, dtype=torch.bool, device=a.device)[..., None]
+    raw = a ^ FLIP
+    return torch.where(v, raw | mask, raw & ~mask) ^ FLIP

@@ -37,9 +37,12 @@ exact ``xor_topk``.  ``core/table.py`` launches the lookup without the
 check and defers it into ``PendingLookup.consume()``, where the host
 waits anyway, so a launch stays asynchronous.
 
-All ids and distances are key tensors (``ops/ids.py``).  Left out of this
-slice: fast2, ``planes=2``, ``tomb_bits``, ``cascade_topk``, the churn
-half, ``expand_table_chunked`` and ``fused_gather_planar``.
+``fused_gather_planar`` is the search engine's table access
+(core/search.py).
+
+All ids and distances are key tensors (``ops/ids.py``).  Not ported
+yet: fast2, ``planes=2``, ``tomb_bits``, ``cascade_topk``, the churn
+half and ``expand_table_chunked``.
 """
 
 from __future__ import annotations
@@ -109,6 +112,26 @@ def _lut_bits(lut) -> int:
 def lut_budget_steps(n_rows: int, bits: int) -> int:
     """In-bucket binary-search depth used when ``lut_steps=None``."""
     return max(6, math.ceil(math.log2(max(n_rows, 2))) - bits + 6)
+
+
+def fused_gather_planar(table, rows, limbs: int = N_LIMBS):
+    """ONE gather of the top ``limbs`` limbs of arbitrary-shaped row
+    indices — the table access of every search round (core/search.py).
+    Returns ``limbs`` planes shaped like ``rows``.  Rows out of range
+    (the engine's -1 "absent") are clipped, so their lanes hold some
+    row's limbs and every caller masks them (``xor_topk.gather_rows``
+    is the oracle that writes all-ones there instead).
+
+    ``table`` is the row-major [N, 5] key table, not the JAX package's
+    transposed [5, N]: that layout avoided the TPU's 5→128 lane padding
+    of a [M, 5] gather.  On the H100 a row's 2 or 5 limbs (8 or 20 B)
+    lie in one 32-byte sector, so the row-major gather reads one sector
+    per row where the planar one reads one per limb.
+    """
+    N = table.shape[0]
+    cl = rows.clamp(0, N - 1).reshape(-1).long()
+    g = table[:, :limbs][cl]                                  # [M, limbs]
+    return [g[:, l].reshape(rows.shape) for l in range(limbs)]
 
 
 def _lex_lt(g, q_l, limbs: int):

@@ -33,6 +33,18 @@ def lexsort(keys, dim: int = -1) -> torch.Tensor:
     return perm
 
 
+def gather_rows(table, rows):
+    """Row-materializing oracle of ``sorted_table.fused_gather_planar``:
+    ``rows`` [...] int → key tensor [..., 5] of table rows, with rows out
+    of range (the engine's -1 "absent" included) as the all-ones
+    sentinel :func:`mask_invalid` uses."""
+    N = table.shape[0]
+    ok = (rows >= 0) & (rows < N)
+    g = table[rows.clamp(0, N - 1).reshape(-1).long()].reshape(
+        tuple(rows.shape) + (N_LIMBS,))
+    return torch.where(ok[..., None], g, KEY_MAX)
+
+
 def select_topk(dist, idx, inv, k: int):
     """Top-k rows of [Q, C] candidates via one lexicographic sort.
 

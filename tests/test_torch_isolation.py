@@ -17,9 +17,11 @@ import torch
 
 import opendht_tpu_torch
 from opendht_tpu_torch import convert
+from opendht_tpu_torch.core.search import simulate_lookups
 from opendht_tpu_torch.core.table import NodeTable
 from opendht_tpu_torch.infohash import InfoHash
 from opendht_tpu_torch.ops import ids as TK
+from opendht_tpu_torch.ops import radix
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -74,6 +76,17 @@ def _entry_points():
             ids, np.arange(4, dtype=np.int32), 4),
         "to_keys": lambda: TK.to_keys(ids),
         "resolve_device": lambda: opendht_tpu_torch.resolve_device(None),
+        "simulate_lookups": lambda: simulate_lookups(ids, 4, ids[:1]),
+        "maintenance_sweep": lambda: radix.maintenance_sweep(
+            ids[0], ids, np.ones(4, bool), np.zeros(4), 0.0, 600.0),
+        "NodeTable.maintenance_sweep": lambda: NodeTable(
+            InfoHash.get("me")).maintenance_sweep(0.0),
+        "NodeTable.stale_buckets": lambda: NodeTable(
+            InfoHash.get("me")).stale_buckets(0.0),
+        "NodeTable.refresh_targets": lambda: NodeTable(
+            InfoHash.get("me")).refresh_targets([0]),
+        "NodeTable.network_size_estimate": lambda: NodeTable(
+            InfoHash.get("me")).network_size_estimate(),
     }
 
 
@@ -89,6 +102,16 @@ def test_entry_points_run_on_the_cpu_when_asked():
     t = NodeTable(InfoHash.get("me"), device="cpu")
     assert t.device == torch.device("cpu")
     assert TK.to_keys(np.zeros((1, 5), np.uint32), "cpu").device.type == "cpu"
+    ids = np.random.default_rng(0).integers(0, 2**32, (64, 5), np.uint32)
+    ids = ids[np.lexsort(ids.T[::-1])]
+    out = simulate_lookups(ids, 64, ids[:3], device="cpu")
+    assert out["nodes"].device.type == "cpu"
+    _, _, stale, _ = radix.maintenance_sweep(
+        ids[0], ids, np.ones(64, bool), np.zeros(64), 0.0, 600.0,
+        device="cpu")
+    assert stale.device.type == "cpu"
+    t.bulk_load(ids, now=0.0)
+    assert t.maintenance_sweep(1.0)[0].size == len(t.stale_buckets(1.0))
 
 
 def _chip_smoke(*args):
@@ -105,12 +128,19 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_chip_smoke_rehearses_every_phase_on_the_cpu():
-    out = _chip_smoke("--cpu", "--n", "5000", "--q", "128")
+    out = _chip_smoke("--cpu", "--n", "5000", "--q", "128",
+                      "--search-n", "20000", "--search-q", "256",
+                      "--search-waves", "2")
     assert out.returncode == 3, out.stderr[-2000:]
     lines = [json.loads(l) for l in out.stdout.splitlines()
              if l.startswith("{")]
     phases = [l.get("phase") for l in lines]
-    assert phases[:5] == ["device", "main", "parity", "timing", "profile"]
+    assert phases[:-1] == ["device", "main", "parity", "timing", "profile",
+                           "memory", "search", "maintenance"]
+    search = lines[phases.index("search")]
+    assert search["lookups"] == 2 * 256
+    assert search["checks"]["goldens"] == ["lut_l5", "lut_l2", "exact_l5"]
+    assert search["checks"]["recall"] >= 0.95
     kernels = lines[-1]["kernels"]
     assert [k["name"] for k in kernels] == ["window_select",
                                             "lex_topk_select"]
