@@ -56,11 +56,37 @@ Phases, one JSON line each:
              equal to a numpy oracle (np.bincount, np.maximum.at in
              float32), every refresh target in its bucket; CUDA-event
              median of the sweep.  (--search-n sizes both phases.)
+10. churn  — BASELINE config 6: 10,000,000 seeded ids sorted on the card
+             with the LUT (24 bits) and the 2-plane stride-64 expansion;
+             512 evictions + 512 inserts per round into a 65,536-row
+             delta, advanced 64 rounds (half the compaction cycle); one
+             round = tombstone-word scatter, delta slab update, delta
+             sort / 2-plane stride-16 and stride-64 expansions / LUT, and
+             churn_lookup_topk (fast2, planes=2, lut_steps=0, d_cap=4096)
+             over 131,072 seeded targets at k=8, repair included.  CUDA
+             events: the round, the static fast2 lookup on the same table,
+             expanded_topk(select="kernel") on the 5-plane expansion, one
+             compaction (sort, 2-plane expansion, LUT of live base ∪
+             delta); host-clock mutation prep per round; derived sustained
+             lookups/s = Q / (round + prep + compaction / 128), mutations/s
+             and churny/static; a profile of one round by stage
+             (churn.absorb / delta_build / base / delta / merge /
+             fallback).  Checks: on 256 seeded queries the fast3 churn
+             lookup equals xor_topk over live base ∪ delta (distances and
+             encodings) and fast2's encodings equal fast3's; 64 queries in
+             a fully tombstoned stretch all fall back and come out exact;
+             merge pack 16 equals pack 1; and at table level 1,000,000
+             ids through 8 batches of bulk_load / insert / on_expired /
+             remove that cross the delta and tombstone limits, with
+             find_closest through the churn view equal to a table rebuilt
+             from the same host state after every batch and at least one
+             background compaction swapped.  (--churn-* flags size it.)
 
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failure raises (nonzero exit, no ok line).  Without a card it exits
 nonzero before any result; ``--cpu`` rehearses every phase on the host
-with the plain versions and also ends without the ok line.
+with the plain versions and also ends without the ok line, as does a
+partial run (``--phases churn``: phases 1-7, then only the churn phase).
 """
 
 from __future__ import annotations
@@ -452,6 +478,351 @@ def maintenance_phase(args, dev, card) -> None:
           "checks": ["counts", "last", "stale", "targets in bucket"]})
 
 
+CONFIG6 = dict(k=8, select="fast2", lut_steps=0, planes=2, d_cap=4096)
+
+
+class ChurnState:
+    """The host side of BASELINE config 6's churn rounds
+    (benchmarks/baseline_configs.py:539-579 with a numpy generator): a
+    tombstone mask over the base's sorted positions and an append-only
+    delta slab.  Each round evicts ``e`` distinct live positions and
+    appends ``e`` fresh ids."""
+
+    def __init__(self, nv: int, n: int, dcap: int, e: int, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.nv, self.e = nv, e
+        self.tomb = np.zeros((n + 31) // 32, np.uint32)
+        self.live = np.zeros(n, bool)
+        self.live[:nv] = True
+        self.delta = np.zeros((dcap, 5), np.uint32)
+        self.n_delta = 0
+
+    def round(self):
+        """One round's mutations on the host; returns (word indices [E]
+        padded by repetition, their post-round values, new ids [E,5],
+        first delta slot)."""
+        picks: list = []
+        seen: set = set()
+        while len(picks) < self.e:
+            for c in self.rng.integers(0, self.nv, size=2 * self.e):
+                c = int(c)
+                if self.live[c] and c not in seen:
+                    seen.add(c)
+                    picks.append(c)
+                    if len(picks) == self.e:
+                        break
+        pos = np.array(picks, np.int64)
+        self.live[pos] = False
+        np.bitwise_or.at(self.tomb, pos >> 5,
+                         np.uint32(1) << (pos & 31).astype(np.uint32))
+        w = np.unique(pos >> 5)
+        widx = np.full(self.e, w[-1], np.int64)
+        widx[:len(w)] = w
+        new_ids = self.rng.integers(0, 2**32, size=(self.e, 5),
+                                    dtype=np.uint32)
+        nd0 = self.n_delta
+        self.delta[nd0:nd0 + self.e] = new_ids
+        self.n_delta = nd0 + self.e
+        return widx, self.tomb[widx], new_ids, nd0
+
+
+def churn_table_check(args, dev, sync) -> dict:
+    """NodeTable level: ``--churn-table-n`` ids bulk-loaded on the
+    device, then 8 batches of mutations through bulk_load / insert /
+    on_expired / remove that together cross the delta limit and the
+    tombstone limit; after each batch find_closest through the churn view
+    equals find_closest on a table rebuilt from the same host state."""
+    from opendht_tpu_torch import InfoHash, NodeTable, convert, tracing
+    from opendht_tpu_torch.core import table as CT
+    from opendht_tpu_torch.ops import ids as IK
+    rng = np.random.default_rng(args.seed + 60)
+    n0 = args.churn_table_n
+    tomb_limit = max(CT.TOMB_MIN, n0 // CT.TOMB_FRAC)
+    per_batch = tomb_limit // 3 + 1          # crosses within 3-4 batches
+    bulk_per = 100                           # bulk loads that fit the delta
+    ins_per = CT.DELTA_CAP * 2 // 5 + 1      # inserts overflow it at batch 3
+    self_id = InfoHash(rng.integers(0, 256, size=20, dtype=np.uint8)
+                       .tobytes())
+    table = NodeTable(self_id, k=1 << 30, capacity=n0,
+                      device=None if dev.type == "cuda" else "cpu")
+    table.bulk_load(rng.integers(0, 2**32, size=(n0, 5), dtype=np.uint32),
+                    now=1.0)
+    table.snapshot(now=1.0)
+    targets = rng.integers(0, 2**32, size=(args.churn_q, 5), dtype=np.uint32)
+    swaps0 = len(tracing.get_tracer().events(name="table_churn_swap"))
+    batches = []
+    for b in range(8):
+        fresh = rng.integers(0, 2**32, size=(bulk_per + ins_per, 5),
+                             dtype=np.uint32)
+        table.bulk_load(fresh[:bulk_per], now=2.0 + b)
+        for row in IK.ids_to_bytes(fresh[bulk_per:]):
+            table.insert(InfoHash(row.tobytes()), None, 2.0 + b, confirm=2)
+        live = np.nonzero(table._valid & ~table._expired)[0]
+        pick = rng.choice(live, size=per_batch, replace=False)
+        raw = IK.ids_to_bytes(table._ids[pick])
+        for i, r in enumerate(raw):
+            h = InfoHash(r.tobytes())
+            if i % 4:
+                table.on_expired(h)
+            else:
+                table.remove(h)
+        pending = table._pending_base is not None
+        sync()
+        t0 = time.perf_counter()
+        got = table.find_closest(targets, now=20.0)
+        churn_s = time.perf_counter() - t0
+        state = {name: getattr(table, "_" + name)
+                 for name in convert.SLAB_COLUMNS + ("bucket_count",)}
+        ref = convert.node_table_from_numpy(
+            bytes(self_id), state, device=None if dev.type == "cuda"
+            else "cpu", k=table.k)
+        sync()
+        t0 = time.perf_counter()
+        ref.snapshot(now=20.0)
+        want = ref.find_closest(targets, now=20.0)
+        rebuilt_s = time.perf_counter() - t0
+        require(np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1]),
+                f"churn view find_closest == rebuilt table, batch {b}")
+        batches.append({"batch": b, "churn_pending": table.churn_pending,
+                        "compaction_pending_after_mutations": pending,
+                        "compactions": table.compactions,
+                        "find_closest_churn_s": churn_s,
+                        "rebuild_and_find_closest_s": rebuilt_s})
+        del ref
+    swaps = len(tracing.get_tracer().events(name="table_churn_swap")) - swaps0
+    require(swaps >= 1 and any(b["compaction_pending_after_mutations"]
+                               for b in batches),
+            "a background compaction was dispatched and swapped")
+    return {"table_n": n0, "q": args.churn_q, "tomb_limit": tomb_limit,
+            "evictions_per_batch": per_batch, "bulk_loaded_per_batch":
+            bulk_per, "inserts_per_batch": ins_per, "swaps": swaps,
+            "compactions": table.compactions, "batches": batches}
+
+
+def churn_phase(args, dev, card, sync) -> None:
+    """BASELINE config 6 (benchmarks/baseline_configs.py:472-710):
+    ``--churn-n`` seeded ids sorted on the device with their LUT and
+    2-plane stride-64 expansion; ``--churn-e`` evictions and inserts per
+    round into a delta of ``--churn-dcap`` rows, advanced half a
+    compaction cycle; one round served with fast2 / planes=2 /
+    lut_steps=0 and a stride-16 delta with a stride-64 rescue.  Timing,
+    derived throughput, a per-stage profile and the checks of the module
+    docstring."""
+    import torch
+    from torch.profiler import record_function
+    from opendht_tpu_torch.ops import ids as IK
+    from opendht_tpu_torch.ops import sorted_table as ST
+    from opendht_tpu_torch.ops.xor_topk import xor_topk
+    cuda = dev.type == "cuda"
+    N, Q, DCAP, E = args.churn_n, args.churn_q, args.churn_dcap, args.churn_e
+    require(2 * E <= DCAP, "2·E <= delta capacity")
+    k = CONFIG6["k"]
+    rng = np.random.default_rng(args.seed + 6)
+    ids = IK.to_keys(rng.integers(0, 2**32, size=(N, 5), dtype=np.uint32),
+                     dev)
+    queries = IK.to_keys(rng.integers(0, 2**32, size=(Q, 5),
+                                      dtype=np.uint32), dev)
+    sorted_ids, _perm, n_valid = ST.sort_table(ids)
+    del ids, _perm
+    expanded = ST.expand_table(sorted_ids, limbs=2)
+    lut_bits = ST.default_lut_bits(N)
+    lut = ST.build_prefix_lut(sorted_ids, n_valid, bits=lut_bits)
+    nv = int(n_valid)
+    d_bits = ST.default_lut_bits(DCAP)
+
+    host = ChurnState(nv, N, DCAP, E, args.seed + 7)
+    warm = max(2, min(max(4, (DCAP // E) // 2), DCAP // E))
+    t0 = time.perf_counter()
+    for _ in range(warm - 1):
+        host.round()
+    host_prep_ms = (time.perf_counter() - t0) * 1e3 / (warm - 1)
+    widx, wval, new_ids, nd0 = host.round()
+    widx = torch.from_numpy(widx).to(dev)
+    wval = ST.tomb_tensor(wval, dev)
+    new_ids = IK.to_keys(new_ids, dev)
+    tomb_base = ST.tomb_tensor(host.tomb, dev)
+    dslab = IK.to_keys(host.delta, dev)
+    nd_after = host.n_delta
+
+    def delta_tables(slab, strides=((16, 2), (64, 2))):
+        dvalid = torch.arange(DCAP, device=dev) < nd_after
+        ds, _dp, dnv = ST.sort_table(slab, dvalid)
+        exps = [ST.expand_table(ds, stride=s, limbs=l) for s, l in strides]
+        return ds, exps, ST.build_prefix_lut(ds, dnv, bits=d_bits)
+
+    def round_body():
+        """One round: the tombstone-word scatter and the delta slab update
+        (values precomputed, so rounds repeat identically), the delta's
+        sort / expansion / LUT and the churn lookup, repair included."""
+        with record_function("churn.absorb"):
+            tomb = tomb_base.clone()
+            tomb[widx] = wval
+            slab = dslab.clone()
+            slab[nd0:nd0 + E] = new_ids
+        with record_function("churn.delta_build"):
+            ds, (de, dew), dlut = delta_tables(slab)
+        return ST.churn_lookup_topk(sorted_ids, expanded, nv, tomb, ds, de,
+                                    nd_after, queries, lut=lut, d_lut=dlut,
+                                    d_exp_wide=dew, **CONFIG6)
+
+    _, enc_round, cert = round_body()
+    require(tuple(enc_round.shape) == (Q, k) and bool(cert.all()),
+            "a churn round returns [Q, k] certified encodings")
+    round_ms = median_ms(round_body, reps=7, cuda=cuda)
+    static_ms = median_ms(lambda: ST.expanded_topk(
+        sorted_ids, expanded, nv, queries, k=k, select="fast2", lut=lut,
+        lut_steps=0, planes=2), reps=7, cuda=cuda)
+    exp5 = ST.expand_table(sorted_ids)
+    kernel_ms = median_ms(lambda: ST.expanded_topk(
+        sorted_ids, exp5, nv, queries, k=k, select="kernel", lut=lut,
+        lut_steps=0), reps=7, cuda=cuda)
+    # flags of the round before its repair (outside the timed calls)
+    ds, (de, dew), dlut = delta_tables(dslab)
+    launch = ST.churn_lookup_launch(sorted_ids, expanded, nv, tomb_base, ds,
+                                    de, nd_after, queries, lut=lut,
+                                    d_lut=dlut, d_exp_wide=dew, **CONFIG6)
+    flags = launch.flags.cpu()
+    repaired = {"base_uncertified": int(((flags & 1) != 0).sum()),
+                "delta_uncertified": int(((flags & 2) != 0).sum()),
+                "merge_ties": int(((flags & 4) != 0).sum())}
+
+    def compact():
+        live = (torch.arange(N, device=dev) < nv) \
+            & ~ST.unpack_tomb_bits(tomb_base, N)
+        cat = torch.cat([sorted_ids, dslab])
+        cval = torch.cat([live, torch.arange(DCAP, device=dev) < nd_after])
+        s2, _p2, nv2 = ST.sort_table(cat, cval)
+        return (s2, ST.expand_table(s2, limbs=2),
+                ST.build_prefix_lut(s2, nv2, bits=lut_bits))
+
+    compact_ms = median_ms(compact, reps=3, warmup=1, cuda=cuda)
+    rounds_per_compaction = max(1, DCAP // E)
+    syncs = "not measured"
+    if cuda:
+        # device→host syncs of one round (by design: the flag read)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                round_body()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sites = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+        syncs = {"count": len(sites), "sites": sites}
+
+    # profile of one round by stage
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    sync()
+    with profile(activities=acts) as prof:
+        s = time.perf_counter()
+        round_body()
+        sync()
+        wall_ms = (time.perf_counter() - s) * 1e3
+    ka = prof.key_averages()
+    dtime = (lambda e: e.device_time_total / 1e3) if cuda \
+        else (lambda e: e.cpu_time_total / 1e3)
+    stages = {e.key: {"calls": e.count, "ms": dtime(e)} for e in ka
+              if e.key.startswith("churn.")
+              and e.device_type != torch.autograd.DeviceType.CUDA}
+    kern = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("churn.")]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    ops = sorted((e for e in ka if e.key.startswith("aten::")),
+                 key=lambda e: (e.self_device_time_total if cuda
+                                else e.self_cpu_time_total), reverse=True)[:10]
+
+    # checks at the advanced state (tombstones and delta as served)
+    nq = min(256, Q)
+    qs = IK.to_keys(rng.integers(0, 2**32, size=(nq, 5), dtype=np.uint32),
+                    dev)
+    ds5, (de5,), dlut5 = delta_tables(dslab, ((32, 5),))
+    dist3, enc3, _ = ST.churn_lookup_topk(sorted_ids, exp5, nv, tomb_base,
+                                          ds5, de5, nd_after, qs, lut=lut,
+                                          d_lut=dlut5, k=k, select="fast3")
+    _, enc2, _ = ST.churn_lookup_topk(sorted_ids, expanded, nv, tomb_base, ds,
+                                      de, nd_after, qs, lut=lut, d_lut=dlut,
+                                      d_exp_wide=dew, **CONFIG6)
+    live_np = torch.from_numpy(host.live).to(dev)
+    cat = torch.cat([sorted_ids, ds])
+    cval = torch.cat([live_np, torch.arange(DCAP, device=dev) < nd_after])
+    d_ref, i_ref = xor_topk(qs, cat, k=k, tile=ST.scan_tile(N + DCAP, nq),
+                            valid=cval)
+    require(torch.equal(dist3, d_ref) and torch.equal(enc3, i_ref),
+            "fast3 churn lookup == xor_topk over live base ∪ delta")
+    require(torch.equal(enc2, enc3), "fast2 encodings == fast3's")
+    # tomb-heavy: every row of a stretch of windows dead
+    lo = nv // 3
+    heavy_np = host.tomb.copy()
+    heavy_live = host.live.copy()
+    heavy_live[lo:lo + 4096] = False
+    pos = np.arange(lo, lo + 4096)
+    np.bitwise_or.at(heavy_np, pos >> 5,
+                     np.uint32(1) << (pos & 31).astype(np.uint32))
+    heavy = ST.tomb_tensor(heavy_np, dev)
+    qh = sorted_ids[lo + 512:lo + 3584:48][:64].clone()  # windows all dead
+    qh[:, 4] ^= 1
+    hl = ST.churn_lookup_launch(sorted_ids, expanded, nv, heavy, ds, de,
+                                nd_after, qh, lut=lut, d_lut=dlut,
+                                d_exp_wide=dew, **CONFIG6)
+    heavy_rows = int(((hl.flags.cpu() & 1) != 0).sum())
+    _, enc_h, _ = ST.churn_lookup_finish(hl)
+    cval_h = torch.cat([torch.from_numpy(heavy_live).to(dev),
+                        torch.arange(DCAP, device=dev) < nd_after])
+    _, ih_ref = xor_topk(qh, cat, k=k, tile=ST.scan_tile(N + DCAP, 64),
+                         valid=cval_h)
+    require(heavy_rows == qh.shape[0] and torch.equal(enc_h, ih_ref),
+            "tomb-heavy windows fall back and come out exact")
+    # pack 16 == pack 1
+    _, enc_p16, _ = ST.churn_lookup_topk(
+        sorted_ids, expanded, nv, tomb_base, ds, de, nd_after, queries,
+        lut=lut, d_lut=dlut, d_exp_wide=dew, merge_pack=16, **CONFIG6)
+    d3_16, e3_16, _ = ST.churn_lookup_topk(sorted_ids, exp5, nv, tomb_base,
+                                           ds5, de5, nd_after, qs, lut=lut,
+                                           d_lut=dlut5, k=k, select="fast3",
+                                           merge_pack=16)
+    require(torch.equal(enc_p16, enc_round) and torch.equal(e3_16, enc3)
+            and torch.equal(d3_16, dist3), "merge pack 16 == pack 1")
+    del exp5, de5
+    table = churn_table_check(args, dev, sync)
+
+    denom_ms = round_ms + host_prep_ms + compact_ms / rounds_per_compaction
+    sustained = Q / denom_ms * 1e3
+    static = Q / static_ms * 1e3
+    emit({"phase": "churn", **card, "config": "BASELINE.json config 6",
+          "n": N, "q": Q, "delta_cap": DCAP, "e": E, "warm_rounds": warm,
+          "n_delta": nd_after, "tombstones": int(nv - host.live.sum()),
+          "lut_bits": lut_bits, **CONFIG6,
+          "round_ms": round_ms, "static_fast2_ms": static_ms,
+          "kernel_select_5plane_ms": kernel_ms, "compact_ms": compact_ms,
+          "host_prep_ms": host_prep_ms,
+          "rounds_per_compaction": rounds_per_compaction,
+          "host_syncs_per_round": syncs,
+          "sustained_lookups_per_s": sustained,
+          "mutations_per_s": 2 * E / denom_ms * 1e3,
+          "static_lookups_per_s": static,
+          "churny_over_static": sustained / static,
+          "rows_repaired_in_round": repaired,
+          "checks": {"fast3_eq_xor_topk_rows": nq, "fast2_eq_fast3": True,
+                     "tomb_heavy_rows": heavy_rows,
+                     "pack16_eq_pack1_rows": Q + nq},
+          "table": table,
+          "profile": {"wall_ms": wall_ms,
+                      "device_ms": dev_ms if cuda else "not measured",
+                      "device_busy_share": (dev_ms / wall_ms if cuda
+                                            else "not measured"),
+                      "time": "device" if cuda else "host (rehearsal)",
+                      "note": "wall_ms includes the profiler's overhead",
+                      "stages": stages,
+                      "top_ops": [{"name": e.key, "calls": e.count,
+                                   "self_ms": (e.self_device_time_total
+                                               if cuda else
+                                               e.self_cpu_time_total) / 1e3}
+                                  for e in ops]}})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="table ids")
@@ -461,6 +832,19 @@ def main(argv=None) -> int:
     ap.add_argument("--search-q", type=int, default=65_536,
                     help="lookups per search wave")
     ap.add_argument("--search-waves", type=int, default=16)
+    ap.add_argument("--churn-n", type=int, default=10_000_000,
+                    help="base ids of the churn phase")
+    ap.add_argument("--churn-q", type=int, default=131_072,
+                    help="lookups per churn round")
+    ap.add_argument("--churn-dcap", type=int, default=65_536,
+                    help="delta slab capacity of the churn rounds")
+    ap.add_argument("--churn-e", type=int, default=512,
+                    help="evictions and inserts per churn round")
+    ap.add_argument("--churn-table-n", type=int, default=1_000_000,
+                    help="ids of the churn phase's NodeTable check")
+    ap.add_argument("--phases", default="all",
+                    help="'all', or 'churn' to run the device, build, "
+                         "parity and main phases and then only churn")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on the host with the plain versions "
@@ -755,8 +1139,10 @@ def main(argv=None) -> int:
                 f"find_closest k=16 allocated {peak_extra} B at peak, not "
                 f"below the {gathered_bytes} B of gathered rows")
 
-    search_phase(args, dev, card, sync)
-    maintenance_phase(args, dev, card)
+    if args.phases == "all":
+        search_phase(args, dev, card, sync)
+        maintenance_phase(args, dev, card)
+    churn_phase(args, dev, card, sync)
 
     kernels = []
     for name, src_line in (("window_select",
@@ -772,9 +1158,9 @@ def main(argv=None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
-    if args.cpu:
-        print("chip_smoke: CPU rehearsal finished; not a chip run",
-              file=sys.stderr)
+    if args.cpu or args.phases != "all":
+        print("chip_smoke: CPU rehearsal or partial run finished; not a "
+              "full chip run", file=sys.stderr)
         return 3
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,10 @@
 It carries the batched closest-node resolve (``NodeTable.bulk_load``
 → ``find_closest``) on an NVIDIA Hopper card: the sorted-window lookup
 in plain torch around two hand-written CUDA select kernels
-(``ops/window_select.py``, ``ops/lex_select.py``); the iterative lookup
+(``ops/window_select.py``, ``ops/lex_select.py``); the live table under
+churn (``core/table.py`` ``ChurnView``: tombstones, a delta slab and
+background compaction, looked up through
+``ops/sorted_table.py`` ``churn_lookup_topk``); the iterative lookup
 engine (``core/search.py`` ``simulate_lookups``); and the k-bucket
 maintenance sweep (``ops/radix.py``, ``NodeTable.maintenance_sweep``).
 

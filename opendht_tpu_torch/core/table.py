@@ -1,6 +1,6 @@
 """The node table: a growable slab of known peers with k-bucket admission
 and device-snapshot queries — the port of the JAX package's
-``core/table.py`` for the batched closest-node resolve.
+``core/table.py``.
 
 Per-packet mutations are O(1) host-side numpy/dict updates; closest-node
 queries over large tables or large waves go through an immutable device
@@ -9,20 +9,27 @@ table), the counterpart of ``RoutingTable::findClosestNodes``
 (src/routing_table.cpp:109-150) and ``NodeCache::getCachedNodes``
 (src/node_cache.cpp:41-74) batched over thousands of targets.
 
+**Churn.**  Once a 'reachable' snapshot exists, mutations no longer drop
+it: a :class:`ChurnView` over it absorbs each eviction or expiry as one
+tombstone bit over the base's sorted positions and each insert or revival
+as a row of a small delta slab, and :meth:`NodeTable.view` serves lookups
+through ``ops/sorted_table.churn_lookup_topk`` — bit-identical to a full
+re-sort.  When the tombstones or the delta pass their limits, the next
+base is sorted in the background (a side CUDA stream and an event;
+:meth:`NodeTable._start_compaction`) while the old view keeps serving,
+and :meth:`NodeTable._maybe_swap` installs it and replays the mutations
+that landed meanwhile.
+
 The bucket-maintenance methods (``maintenance_sweep``,
 ``stale_buckets``, ``refresh_targets``, ``network_size_estimate``) run
 ``ops/radix.py`` on the table's device; the reusable maintenance key of
-the JAX package is a ``torch.Generator`` seeded once per table.
-
-Not ported yet: the churn view and background compaction.  Here
-:meth:`NodeTable.view` always returns a snapshot of the current state,
-so every mutation costs a rebuild at the next device lookup; the results
-are the same exact ones the churn view gives.  The mesh/layout (sharded)
-resolve and the table's telemetry counters are left out too.
+the JAX package is a ``torch.Generator`` seeded once per table.  The
+mesh/layout (sharded) resolve is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Any, Optional
@@ -30,25 +37,56 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .. import telemetry, tracing
 from .._device import resolve_device
 from ..infohash import InfoHash
 from ..ops import ids as IK
 from ..ops import radix
-from ..ops.sorted_table import (expand_table, lookup_topk,
-                                resolve_uncertified, sort_table)
+from ..ops.sorted_table import (_resolve_merge_pack, churn_lookup_finish,
+                                churn_lookup_launch, expand_table,
+                                lookup_topk, resolve_uncertified, sort_table,
+                                tomb_tensor)
 
 # liveness windows (reference include/opendht/node.h:148-158)
 NODE_GOOD_TIME = 120 * 60.0       # replied within 2 h → good
 NODE_EXPIRE_TIME = 10 * 60.0      # silent for 10 min → expirable
+MAX_RESPONSE_TIME = 1.0           # per-attempt RPC timeout
 MAX_AUTH_ERRORS = 3               # 3 strikes → expired (node.h:73-77)
 
 TARGET_NODES = 8                  # k (routing_table.h:26)
+SEARCH_NODES = 14                 # search candidate set (dht.h:308)
+
+DELTA_CAP = 4096                  # churn side-slab capacity (inserts
+                                  # absorbed without re-sorting)
+TOMB_MIN = 1024                   # compact when tombstones exceed
+TOMB_FRAC = 16                    # max(TOMB_MIN, n_base // TOMB_FRAC)
+
+# compactions (every full re-sort that folds pending churn into a new
+# base), per process, beside each NodeTable's ``compactions``
+_M_COMPACTIONS = telemetry.get_registry().counter(
+    "dht_table_compactions_total")
 
 # Below these sizes closest-node queries run as an exact numpy scan on
 # the host slab instead of the device lookup (a live node's table is
 # tens-to-hundreds of rows, where a device round trip dwarfs the scan).
 HOST_SCAN_MAX_ROWS = 4096
 HOST_SCAN_MAX_QUERIES = 64
+
+
+@dataclasses.dataclass
+class NodeView:
+    """Host-side view of one table row (≈ reference Node, node.h)."""
+
+    row: int
+    id: InfoHash
+    addr: Any
+    time_reply: float
+    time_seen: float
+    expired: bool
+
+    def is_good(self, now: float) -> bool:
+        return (not self.expired) and self.time_reply > 0 and \
+            now - self.time_reply < NODE_GOOD_TIME
 
 
 class PendingLookup:
@@ -146,21 +184,198 @@ class Snapshot:
         return PendingLookup(finalize, probe=probe)
 
 
+class ChurnView:
+    """Append+tombstone view over an immutable base :class:`Snapshot`
+    (reference mutation path src/routing_table.cpp:204-262).
+
+    Mutations since the base was built are absorbed host-side in O(1):
+    evictions set one bit in a packed tombstone mask over *sorted
+    positions* (dead rows stay in the device array as mere sort keys);
+    inserts land in a small delta slab.  :meth:`lookup` runs
+    ``churn_lookup_topk`` — a tombstone-masked window top-k over the
+    base, a window top-k over the delta (its own small sorted + expanded
+    table, re-sorted lazily per mutation batch) and one merge — exactly
+    as a full re-sort would answer.  The tombstone words re-upload whole
+    when dirty (1.25 MB per 10M rows); the delta re-sorts on the device.
+
+    The host copy of the base's ``perm`` (the sorted→row map the results
+    go through; 40 MB at 10M rows) is taken here, when the view is built
+    at a snapshot or a swap, never during a lookup.
+    """
+
+    def __init__(self, base: Snapshot, cap_rows: int,
+                 delta_cap: int = DELTA_CAP):
+        self.base = base
+        n = base.sorted_ids.shape[0]
+        perm = base.perm.cpu().numpy()
+        self.n_base = int((perm >= 0).sum())
+        self._perm = perm
+        # slab row -> sorted position AT BASE-BUILD TIME.  Never re-read
+        # after the row is freed and reused: inserts always go to the
+        # delta, and note_evict checks delta membership first, so a stale
+        # mapping only ever tombstones the id that occupied the position.
+        self.inv_perm = np.full(cap_rows, -1, dtype=np.int64)
+        pos = np.nonzero(perm >= 0)[0]
+        self.inv_perm[perm[pos]] = pos
+        self.tomb_np = np.zeros((n + 31) // 32, dtype=np.uint32)
+        self.tomb_count = 0
+        self.delta_ids_np = np.zeros((delta_cap, IK.N_LIMBS), dtype=np.uint32)
+        self.delta_rows = np.full(delta_cap, -1, dtype=np.int64)
+        self._delta_pos: dict[int, int] = {}
+        self.n_delta = 0
+        self._dev_tomb = None
+        self._dev_delta = None    # (d_sorted, d_expanded, d_perm) on device
+        self._dirty_tomb = True
+        self._dirty_delta = True
+
+    @property
+    def pending(self) -> int:
+        return self.tomb_count + self.n_delta
+
+    def grow_delta(self) -> None:
+        """Double the delta slab, so an overflowing delta keeps absorbing
+        inserts while a background compaction builds the next base."""
+        dcap = self.delta_ids_np.shape[0]
+        self.delta_ids_np = np.concatenate(
+            [self.delta_ids_np, np.zeros_like(self.delta_ids_np)])
+        self.delta_rows = np.concatenate(
+            [self.delta_rows, np.full(dcap, -1, dtype=np.int64)])
+        self._dirty_delta = True
+
+    def note_insert(self, row: int, limbs) -> bool:
+        """Absorb a newly live slab row.  False = delta slab full (the
+        caller must compact).  The row must not be live in the base:
+        NodeTable routes here only rows that are new, revived after an
+        expiry (whose base position the expiry tombstoned), or absent
+        from the base mask at build time, so live ids stay unique across
+        base and delta and the merge order stays exact."""
+        if row in self._delta_pos:
+            return True
+        if self.n_delta >= self.delta_ids_np.shape[0]:
+            return False
+        s = self.n_delta
+        self.delta_ids_np[s] = limbs
+        self.delta_rows[s] = row
+        self._delta_pos[row] = s
+        self.n_delta = s + 1
+        self._dirty_delta = True
+        return True
+
+    def note_evict(self, row: int) -> None:
+        """Absorb a row leaving the live set (evicted or expired).  Delta
+        membership is checked before the base mapping, so a reused slab
+        row never tombstones another id's position."""
+        s = self._delta_pos.pop(row, None)
+        if s is not None:
+            last = self.n_delta - 1
+            if s != last:
+                self.delta_ids_np[s] = self.delta_ids_np[last]
+                lrow = int(self.delta_rows[last])
+                self.delta_rows[s] = lrow
+                self._delta_pos[lrow] = s
+            self.delta_rows[last] = -1
+            self.n_delta = last
+            self._dirty_delta = True
+            return
+        if 0 <= row < len(self.inv_perm):
+            p = int(self.inv_perm[row])
+            if p >= 0 and not (int(self.tomb_np[p >> 5]) >> (p & 31)) & 1:
+                self.tomb_np[p >> 5] |= np.uint32(1) << (p & 31)
+                self.tomb_count += 1
+                self._dirty_tomb = True
+
+    def lookup(self, queries, *, k: int = TARGET_NODES, window: int = 128):
+        """Batched exact k-closest over (live base ∪ delta) — the
+        contract of :meth:`Snapshot.lookup` (``window`` ignored)."""
+        return self.lookup_launch(queries, k=k, window=window).consume()
+
+    def lookup_launch(self, queries, *, k: int = TARGET_NODES,
+                      window: int = 128) -> PendingLookup:
+        """Async form of :meth:`lookup`.  The tombstone / delta refresh
+        and the churn lookup are enqueued here without a host sync; the
+        one flag read, the repair of flagged rows and the row mapping
+        wait in ``consume()``.  The finalize closure captures
+        ``delta_rows``, the delta's sorted→slot map and ``_perm`` at
+        launch: ``note_evict`` swap-removes delta slots in place and a
+        delta re-sort replaces the map, so mapping through the live view
+        at consume could diverge from what this launch saw.
+
+        Telemetry: ``dht_churn_lookups_total{pack=}`` and the
+        ``dht_churn_tombstones`` / ``dht_churn_delta_rows`` gauges at
+        launch; ``dht_churn_lookup_seconds`` observes the launch's host
+        time plus the wait in ``consume()``."""
+        reg = telemetry.get_registry()
+        reg.counter("dht_churn_lookups_total",
+                    pack=_resolve_merge_pack("auto", k)).inc()
+        reg.gauge("dht_churn_tombstones").set(self.tomb_count)
+        reg.gauge("dht_churn_delta_rows").set(self.n_delta)
+        base = self.base
+        dev = base.device
+        q = queries if isinstance(queries, torch.Tensor) \
+            else IK.to_keys(queries, dev)
+        if base._expanded is None:
+            base._expanded = expand_table(base.sorted_ids)
+        if self._dirty_tomb or self._dev_tomb is None:
+            self._dev_tomb = tomb_tensor(self.tomb_np, dev)
+            self._dirty_tomb = False
+        if self._dirty_delta or self._dev_delta is None:
+            dcap = self.delta_ids_np.shape[0]
+            # slots are prefix-dense
+            dvalid = torch.arange(dcap, device=dev) < self.n_delta
+            ds, dp, _ = sort_table(IK.to_keys(self.delta_ids_np, dev), dvalid)
+            self._dev_delta = (ds, expand_table(ds, stride=32), dp)
+            self._dirty_delta = False
+        ds, de, d_perm = self._dev_delta
+        t0 = time.perf_counter()
+        launch = churn_lookup_launch(base.sorted_ids, base._expanded,
+                                     base.n_valid, self._dev_tomb, ds, de,
+                                     self.n_delta, q, k=k)
+        dispatch_s = time.perf_counter() - t0
+        probe = None
+        if q.is_cuda:
+            probe = torch.cuda.Event()
+            probe.record(torch.cuda.current_stream(q.device))
+        n = base.sorted_ids.shape[0]
+        base_perm = self._perm
+        delta_rows = self.delta_rows.copy()
+        hist = reg.histogram("dht_churn_lookup_seconds")
+
+        def finalize():
+            t1 = time.perf_counter()
+            dist, enc, _ = churn_lookup_finish(launch)
+            enc = enc.cpu().numpy()
+            hist.observe(dispatch_s + (time.perf_counter() - t1))
+            # enc in [n, n+D) is a delta sorted position → slot → slab row
+            dp = d_perm.cpu().numpy()
+            dslot = dp[np.clip(enc - n, 0, len(dp) - 1)]
+            rows = np.where(
+                enc < 0, -1,
+                np.where(enc < n, base_perm[np.clip(enc, 0, n - 1)],
+                         delta_rows[np.clip(dslot, 0, None)]))
+            return rows.astype(np.int32), IK.from_keys(dist)
+
+        return PendingLookup(finalize, probe=probe)
+
+
 class NodeTable:
     """Growable peer slab with k-bucket admission (one per address family,
     like the reference's buckets4/buckets6, dht.h:370-381).
 
     ``device``: where snapshots and device lookups live; None means the
-    CUDA card and raises when there is none."""
+    CUDA card and raises when there is none.  ``delta_cap``: the churn
+    view's delta slab capacity."""
 
     def __init__(self, self_id: InfoHash, *, k: int = TARGET_NODES,
-                 capacity: int = 1024, device=None):
+                 capacity: int = 1024, delta_cap: int = DELTA_CAP,
+                 device=None):
         self.device = resolve_device(device)
         self.self_id = self_id
         self.self_limbs = IK.ids_from_bytes(bytes(self_id)).reshape(-1)
         self.k = k
         self._cap = capacity
-        self.compactions = 0              # no churn view yet: stays 0
+        self._delta_cap = delta_cap
+        self._churn: Optional[ChurnView] = None
+        self.compactions = 0              # full re-sorts folding churn
         self._ids = np.zeros((capacity, IK.N_LIMBS), dtype=np.uint32)
         self._valid = np.zeros(capacity, dtype=bool)
         self._expired = np.zeros(capacity, dtype=bool)
@@ -178,6 +393,10 @@ class NodeTable:
         self._version = 0
         self._snap: Optional[Snapshot] = None
         self._maint_gen: Optional[torch.Generator] = None
+        # in-flight background compaction: the next base being sorted on
+        # the side stream + the mutation log to replay at swap
+        self._pending_base: Optional[dict] = None
+        self._side_stream = None
 
     # ------------------------------------------------------------------ size
     def __len__(self) -> int:
@@ -213,11 +432,138 @@ class NodeTable:
         """Valid, non-expired nodes (good or dubious)."""
         return self._valid & ~self._expired
 
+    def is_good(self, row: int, now: float) -> bool:
+        return bool(self.good_mask(now)[row])
+
     # ------------------------------------------------------------- mutation
-    def _touch(self) -> None:
-        """The table changed: the next device lookup rebuilds the snapshot."""
+    def _touch(self, count_compaction: bool = True) -> None:
+        """A change the churn view cannot absorb: drop the snapshot, the
+        churn view and any pending compaction (the next view rebuilds).
+        A view carrying pending churn counts as a compaction, since the
+        rebuild folds that churn into the next base; the replay-overflow
+        path of :meth:`_maybe_swap` has booked its compaction already and
+        passes ``count_compaction=False``."""
+        if count_compaction and self._churn is not None \
+                and self._churn.pending:
+            self.compactions += 1
+            _M_COMPACTIONS.inc()
         self._version += 1
         self._snap = None
+        self._churn = None
+        self._pending_base = None        # built from a stale state
+
+    # -------------------------------------------- non-blocking compaction
+    def _start_compaction(self) -> None:
+        """Sort the next base (the current host state) without blocking:
+        on the card the sort runs on a side stream and records an event,
+        while the old snapshot and churn view keep serving every lookup
+        exactly; :meth:`_maybe_swap` installs the result once the event
+        has fired.  Mutations that land meanwhile are logged and replayed
+        into the new view.  ``n_valid`` comes from the host mask, so the
+        swap needs no device read; on the CPU the sort is done at once."""
+        if self._pending_base is not None or self._snap is None:
+            return
+        m = self.reachable_mask(time.monotonic())
+        dev = self.device
+        ids = IK.to_keys(self._ids, dev)
+        valid = torch.from_numpy(m).to(dev)
+        event = None
+        if dev.type == "cuda":
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(dev)
+            side = self._side_stream
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                sorted_ids, perm, _ = sort_table(ids, valid)
+                event = torch.cuda.Event()
+                event.record(side)
+            # the inputs were made on the current stream: keep their
+            # memory until the side stream is done with them
+            ids.record_stream(side)
+            valid.record_stream(side)
+        else:
+            sorted_ids, perm, _ = sort_table(ids, valid)
+        self._pending_base = {"sorted": sorted_ids, "perm": perm,
+                              "n_valid": int(m.sum()), "event": event,
+                              "mutlog": []}
+
+    def _maybe_swap(self, force: bool = False) -> bool:
+        """Install a finished background compaction; with ``force`` wait
+        for it.  Replays the post-dispatch mutation log into the new
+        churn view so the swap is exact."""
+        pb = self._pending_base
+        if pb is None:
+            return False
+        event = pb["event"]
+        if event is not None:
+            if not force and not event.query():
+                return False
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(event)
+            # made on the side stream, read from now on on this one
+            pb["sorted"].record_stream(cur)
+            pb["perm"].record_stream(cur)
+        snap = Snapshot(pb["sorted"], pb["perm"], pb["n_valid"],
+                        self._version, ("reachable", 0))
+        self._snap = snap
+        self._churn = ChurnView(snap, self._cap, self._delta_cap)
+        self._pending_base = None
+        self.compactions += 1
+        _M_COMPACTIONS.inc()
+        tr = tracing.get_tracer()
+        if tr.enabled:
+            tr.event("table_churn_swap", replayed=len(pb["mutlog"]),
+                     compactions=self.compactions)
+        for op, row in pb["mutlog"]:
+            if op == "i":
+                if not self._churn.note_insert(row, self._ids[row]):
+                    # replay overflow (a log larger than a fresh slab):
+                    # full rebuild; this swap is counted already
+                    self._touch(count_compaction=False)
+                    return True
+            else:
+                self._churn.note_evict(row)
+        return True
+
+    def _tomb_limit(self) -> int:
+        ch = self._churn
+        n = ch.n_base if ch is not None else 0
+        return max(TOMB_MIN, n // TOMB_FRAC)
+
+    def _delta_growth_limit(self) -> int:
+        """Overflow headroom: the delta may double up to 8× its
+        configured capacity while a background compaction is pending."""
+        return 8 * self._delta_cap
+
+    def _absorb_insert(self, row: int) -> None:
+        """A slab row became live.  Absorbed into the churn delta when a
+        'reachable' base view is active (``_version`` untouched); else
+        full invalidation.  A full delta doubles (bounded) and starts a
+        background compaction, with the old view serving meanwhile."""
+        ch = self._churn
+        if ch is not None and self._snap is not None:
+            if self._pending_base is not None:
+                self._pending_base["mutlog"].append(("i", row))
+            if ch.note_insert(row, self._ids[row]):
+                return
+            if ch.delta_ids_np.shape[0] < self._delta_growth_limit():
+                ch.grow_delta()
+                self._start_compaction()
+                if ch.note_insert(row, self._ids[row]):
+                    return
+        self._touch()                   # growth exhausted / no churn view
+
+    def _absorb_evict(self, row: int) -> None:
+        """A slab row left the live set (evicted or expired)."""
+        ch = self._churn
+        if ch is not None and self._snap is not None:
+            if self._pending_base is not None:
+                self._pending_base["mutlog"].append(("e", row))
+            ch.note_evict(row)
+            if ch.tomb_count > self._tomb_limit():
+                self._start_compaction()    # due; built in the background
+            return
+        self._touch()
 
     def insert(self, node_id: InfoHash, addr: Any, now: Optional[float] = None,
                *, confirm: int = 0) -> Optional[int]:
@@ -238,8 +584,10 @@ class NodeTable:
             self._time_seen[row] = now
             if confirm >= 2:
                 if self._expired[row]:
-                    self._expired[row] = False          # revival
-                    self._touch()
+                    # revival: dead in every view (its base copy, if any,
+                    # was tombstoned at expiry): re-enters as a delta row
+                    self._expired[row] = False
+                    self._absorb_insert(row)
                 elif self._time_reply[row] == 0:
                     # first reply: only a 'good'-mask snapshot goes stale
                     if self._snap is not None \
@@ -273,7 +621,7 @@ class NodeTable:
         self._addrs[row] = addr
         self._row_of[key] = row
         self._bucket_count[b] += 1
-        self._touch()
+        self._absorb_insert(row)
         return row
 
     def _evict_row(self, row: int) -> None:
@@ -283,7 +631,7 @@ class NodeTable:
         self._valid[row] = False
         self._addrs[row] = None
         self._free.append(row)
-        self._touch()
+        self._absorb_evict(row)
 
     def remove(self, node_id: InfoHash) -> None:
         row = self._row_of.get(bytes(node_id))
@@ -304,7 +652,7 @@ class NodeTable:
         row = self._row_of.get(bytes(node_id))
         if row is not None and not self._expired[row]:
             self._expired[row] = True
-            self._touch()
+            self._absorb_evict(row)
 
     def on_auth_error(self, node_id: InfoHash) -> None:
         """Crypto failure from this peer; 3 strikes expire it (node.h:73-77)."""
@@ -314,7 +662,13 @@ class NodeTable:
             if self._auth_err[row] >= MAX_AUTH_ERRORS \
                     and not self._expired[row]:
                 self._expired[row] = True
-                self._touch()
+                self._absorb_evict(row)
+
+    def clear_bad(self) -> None:
+        """Drop expired nodes (↔ NodeCache::clearBadNodes on connectivity
+        change, src/node_cache.cpp:76-85)."""
+        for row in np.nonzero(self._valid & self._expired)[0]:
+            self._evict_row(int(row))
 
     def bulk_load(self, ids_u32: np.ndarray, now: float = 0.0,
                   *, replied: bool = True, addrs=None,
@@ -325,9 +679,10 @@ class NodeTable:
         precomputed ``common_bits(self, id)`` per row.
 
         Ids already in the table and batch-internal duplicates are not
-        added again; a known id is refreshed as ``insert`` would (with
-        ``replied=True`` an expired one revives), exactly as in the JAX
-        package."""
+        added again (live ids stay unique across base and delta); a known
+        id is refreshed as ``insert`` would (with ``replied=True`` an
+        expired one revives), exactly as in the JAX package.  New rows
+        go into the churn delta when they fit, else the view rebuilds."""
         ids_u32 = np.asarray(ids_u32, dtype=np.uint32)
         raw = IK.ids_to_bytes(ids_u32)
         per_row_addrs = isinstance(addrs, (list, tuple, np.ndarray))
@@ -345,7 +700,7 @@ class NodeTable:
                 if replied:
                     if self._expired[row]:
                         self._expired[row] = False      # revival
-                        self._touch()
+                        self._absorb_insert(row)
                     elif self._time_reply[row] == 0 \
                             and self._snap is not None \
                             and self._snap.mask_key[0] == "good":
@@ -385,9 +740,27 @@ class NodeTable:
             self._row_of[raw[i].tobytes()] = int(row)
             if addrs is not None:
                 self._addrs[int(row)] = addrs[i] if per_row_addrs else addrs
-        self._touch()
+        if self._churn is not None and self._snap is not None \
+                and self._churn.n_delta + n <= self.delta_capacity:
+            # through _absorb_insert, not note_insert: a pending
+            # background compaction must see these rows in its log, or
+            # they would vanish from the serving view at the swap
+            for row in rows:
+                self._absorb_insert(int(row))
+        else:
+            self._touch()
 
     # --------------------------------------------------------------- reads
+    def get_view(self, row: int) -> NodeView:
+        return NodeView(
+            row=row,
+            id=InfoHash(IK.ids_to_bytes(self._ids[row]).tobytes()),
+            addr=self._addrs[row],
+            time_reply=float(self._time_reply[row]),
+            time_seen=float(self._time_seen[row]),
+            expired=bool(self._expired[row]),
+        )
+
     def row_of(self, node_id: InfoHash) -> Optional[int]:
         return self._row_of.get(bytes(node_id))
 
@@ -404,6 +777,17 @@ class NodeTable:
         return [InfoHash(raw[i].tobytes()) if r >= 0 else None
                 for i, r in enumerate(rows)]
 
+    @property
+    def delta_capacity(self) -> int:
+        return self._delta_cap
+
+    @property
+    def churn_pending(self) -> int:
+        """Mutations absorbed by the churn view since the last base
+        build (tombstones + delta inserts).  0 ⇒ the base snapshot is
+        complete."""
+        return self._churn.pending if self._churn is not None else 0
+
     def _mask(self, now: float, mask: str) -> np.ndarray:
         if mask == "good":
             return self.good_mask(now)
@@ -413,27 +797,49 @@ class NodeTable:
 
     def snapshot(self, now: Optional[float] = None, *,
                  mask: str = "reachable") -> Snapshot:
-        """Device snapshot for batched queries.  mask: 'reachable' (valid
-        & not expired), 'good', or 'valid'.  Cached until the table
-        mutates ('good' additionally keyed by a 10 s time bucket)."""
+        """Full device snapshot for batched queries.  mask: 'reachable'
+        (valid & not expired), 'good', or 'valid'.  Cached until the
+        table mutates ('good' additionally keyed by a 10 s time bucket).
+        Pending churn forces a rebuild here (a compaction, waiting for a
+        background one first); lookups that can use the incremental view
+        go through :meth:`view`."""
         if now is None:
             now = time.monotonic()
+        if mask == "reachable":
+            self._maybe_swap(force=True)
         tkey = int(now // 10) if mask == "good" else 0
         mk = (mask, tkey)
         if self._snap is not None and self._snap.version == self._version \
-                and self._snap.mask_key == mk:
+                and self._snap.mask_key == mk and self.churn_pending == 0:
             return self._snap
         m = self._mask(now, mask)
-        sorted_ids, perm, n_valid = sort_table(
-            IK.to_keys(self._ids, self.device),
-            torch.from_numpy(m).to(self.device))
-        self._snap = Snapshot(sorted_ids, perm, int(n_valid), self._version,
+        # a compaction only when this rebuild folds pending churn into
+        # the base — first builds and other masks are not compactions
+        if self.churn_pending > 0:
+            self.compactions += 1
+            _M_COMPACTIONS.inc()
+        sorted_ids, perm, _ = sort_table(IK.to_keys(self._ids, self.device),
+                                         torch.from_numpy(m).to(self.device))
+        self._snap = Snapshot(sorted_ids, perm, int(m.sum()), self._version,
                               mk)
+        # churn absorption tracks the 'reachable' mask only (the one every
+        # routing lookup uses); 'good' / 'valid' rebuild on mutation
+        self._churn = ChurnView(self._snap, self._cap, self._delta_cap) \
+            if mask == "reachable" else None
         return self._snap
 
     def view(self, now: Optional[float] = None, *, mask: str = "reachable"):
-        """Lookup view: the snapshot of the current state (no churn view
-        in this port yet)."""
+        """Lookup view: the churn view while tombstones or delta rows are
+        pending, else the plain snapshot.  Both expose ``lookup`` /
+        ``lookup_launch`` with identical, exact results; the churn view
+        skips the re-sort and re-expansion a mutation would otherwise
+        cost.  Installs a finished background compaction first."""
+        if mask == "reachable":
+            self._maybe_swap()
+        ch = self._churn
+        if ch is not None and self._snap is not None and ch.pending \
+                and self._snap.mask_key == (mask, 0):
+            return ch
         return self.snapshot(now, mask=mask)
 
     def find_closest(self, targets, *, k: int = TARGET_NODES,
@@ -544,6 +950,14 @@ class NodeTable:
     def network_size_estimate(self) -> int:
         me, ids, valid, _ = self._slab()
         return int(radix.estimate_network_size(me, ids, valid, k=self.k))
+
+    def export_nodes(self, now: Optional[float] = None) -> list:
+        """Good nodes for persistence/bootstrap (↔ Dht::exportNodes,
+        src/dht.cpp:2029-2059)."""
+        if now is None:
+            now = time.monotonic()
+        rows = np.nonzero(self.good_mask(now))[0]
+        return [(self.id_of(int(r)), self._addrs[int(r)]) for r in rows]
 
 
 def _as_limbs(targets) -> np.ndarray:

@@ -130,17 +130,23 @@ def test_chip_smoke_fails_without_a_card():
 def test_chip_smoke_rehearses_every_phase_on_the_cpu():
     out = _chip_smoke("--cpu", "--n", "5000", "--q", "128",
                       "--search-n", "20000", "--search-q", "256",
-                      "--search-waves", "2")
+                      "--search-waves", "2", "--churn-n", "20000",
+                      "--churn-q", "256", "--churn-dcap", "2048",
+                      "--churn-e", "64", "--churn-table-n", "20000")
     assert out.returncode == 3, out.stderr[-2000:]
     lines = [json.loads(l) for l in out.stdout.splitlines()
              if l.startswith("{")]
     phases = [l.get("phase") for l in lines]
     assert phases[:-1] == ["device", "main", "parity", "timing", "profile",
-                           "memory", "search", "maintenance"]
+                           "memory", "search", "maintenance", "churn"]
     search = lines[phases.index("search")]
     assert search["lookups"] == 2 * 256
     assert search["checks"]["goldens"] == ["lut_l5", "lut_l2", "exact_l5"]
     assert search["checks"]["recall"] >= 0.95
+    churn = lines[phases.index("churn")]
+    assert churn["checks"]["tomb_heavy_rows"] == 64
+    assert churn["table"]["swaps"] >= 1
+    assert churn["sustained_lookups_per_s"] > 0
     kernels = lines[-1]["kernels"]
     assert [k["name"] for k in kernels] == ["window_select",
                                             "lex_topk_select"]
