@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py                 # the full run on the card
     python3 chip_smoke.py --cpu --n 20000 --q 512 \
-        --search-n 20000 --search-q 256 --search-waves 2   # rehearsal
+        --search-n 20000 --search-q 256 --search-waves 2 \
+        --serve-n 20000 --serve-q 64 --serve-gets 200      # rehearsal
 
 Phases, one JSON line each:
 
@@ -81,12 +82,41 @@ Phases, one JSON line each:
              find_closest through the churn view equal to a table rebuilt
              from the same host state after every batch and at least one
              background compaction swapped.  (--churn-* flags size it.)
+11. serve  — the serving node (runtime.Dht with its msgpack net engine,
+             live searches and ingest waves) on the card.  BASELINE
+             config 1: a v4-only Dht on a virtual clock with a transport
+             that swallows every datagram, 10,000 seeded ids bulk-loaded
+             (default_rng(1)), warmup(), then 1,000 Dht.get on the seeded
+             keys at the default ingest knobs (fill 64, deadline 2 ms,
+             depth 2), the scheduler pumped after each get; reports the
+             host time from the first get to the last wave scattered,
+             gets/s, the waves, their occupancy and device ms (CUDA
+             events), the lookups per route (snapshot = window_select,
+             churn view).  Checks: every get's first 14 candidates equal
+             a numpy exact top-14; depth 1 and batching off give the same
+             sets; with the virtual clock advanced 6 s (searches expire)
+             and the node then shut down, every done_cb fired once.  The live node (benchmarks/live_node_scale.py's shape):
+             1,000,000 seeded ids (default_rng(11)), a Dht over a real
+             localhost UDP socket served from a thread, a client
+             NetworkEngine bursting 512 alternating find / get requests
+             in two halves, a peer joining a near-empty bucket between
+             them (so the first half runs through the snapshot, the
+             second through the churn view); reports bulk-load s,
+             requests/s, p50 / p99 latency, the routes; checks every
+             nodes4 against a numpy exact top-8 over the reachable rows.
+             Then a forced snapshot() and find_closest_nodes_batched on
+             4,096 seeded targets (warm, then timed): lookups/s, every row
+             exact.  window_select at the serving shapes (Q=1 k=8, Q=64
+             k=14, Q=4096 k=8) against its plain version, with times and
+             byte bounds.  Fails on any ingest wave failure or ERROR
+             record of the port's loggers.  (--serve-* flags size it.)
 
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failure raises (nonzero exit, no ok line).  Without a card it exits
 nonzero before any result; ``--cpu`` rehearses every phase on the host
 with the plain versions and also ends without the ok line, as does a
-partial run (``--phases churn``: phases 1-7, then only the churn phase).
+partial run (``--phases churn`` or ``--phases serve``: phases 1-7, then
+only that phase).
 """
 
 from __future__ import annotations
@@ -823,6 +853,494 @@ def churn_phase(args, dev, card, sync) -> None:
                                   for e in ops]}})
 
 
+def exact_topk_np(ids: np.ndarray, targets: np.ndarray, k: int) -> np.ndarray:
+    """Exact XOR top-k of ``ids`` (uint32 [N,5]) for each target ([Q,5]),
+    in numpy: ids sorted once; for each target the longest prefix p of
+    its limb 0 whose id range (contiguous in sorted order) still holds
+    ≥ k ids — every id outside that range differs from the target within
+    the first p bits, so it is farther than every id inside — then a
+    lexsort of that range.  Returns the ids [Q, min(k, N), 5]."""
+    s = ids[np.lexsort(ids.T[::-1])]
+    s0 = s[:, 0]
+    t0 = targets[:, 0].astype(np.uint64)
+    kk = min(k, len(s))
+    lo = np.zeros(len(targets), np.int64)
+    hi = np.full(len(targets), len(s), np.int64)
+    for p in range(1, 33):
+        mask = np.uint64((0xFFFFFFFF << (32 - p)) & 0xFFFFFFFF)
+        base = (t0 & mask).astype(np.uint32)
+        top = (t0 | (~mask & np.uint64(0xFFFFFFFF))).astype(np.uint32)
+        plo = np.searchsorted(s0, base, side="left")
+        phi = np.searchsorted(s0, top, side="right")
+        ok = (phi - plo) >= kk
+        lo = np.where(ok, plo, lo)
+        hi = np.where(ok, phi, hi)
+    out = np.empty((len(targets), kk, 5), np.uint32)
+    for i, t in enumerate(targets):
+        c = s[lo[i]:hi[i]]
+        d = c ^ t
+        out[i] = c[np.lexsort((d[:, 4], d[:, 3], d[:, 2], d[:, 1],
+                               d[:, 0]))[:kk]]
+    return out
+
+
+def _near_id(me: bytes, bits: int, salt: bytes) -> bytes:
+    """An id sharing exactly ``bits`` leading bits with ``me`` (its bucket
+    is near-empty in a random table)."""
+    import hashlib
+    raw = bytearray(hashlib.sha1(salt).digest())
+    for i in range(bits + 1):
+        byte, m = i // 8, 0x80 >> (i % 8)
+        want = me[byte] & m if i < bits else (~me[byte]) & m
+        raw[byte] = (raw[byte] & ~m) | want
+    return bytes(raw)
+
+
+def serve_phase(args, dev, card, sync) -> int:
+    """The serving node (see the module docstring, phase 11).  Returns
+    the window_select launches of the phase's three counted runs."""
+    import logging
+    import select
+    import socket
+    import threading
+    import torch
+    from opendht_tpu_torch import telemetry
+    from opendht_tpu_torch.core import table as CT
+    from opendht_tpu_torch.core.value import Query
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.net.engine import EngineCallbacks, NetworkEngine
+    from opendht_tpu_torch.ops import ids as IK
+    from opendht_tpu_torch.ops import sorted_table as ST
+    from opendht_tpu_torch.ops.window_select import (window_select,
+                                                      window_select_plain)
+    from opendht_tpu_torch.runtime import Config, Dht
+    from opendht_tpu_torch.runtime.live_search import SEARCH_NODES
+    from opendht_tpu_torch.scheduler import Scheduler
+    from opendht_tpu_torch.sockaddr import SockAddr
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    device = None if cuda else "cpu"
+    AF = socket.AF_INET
+    reg = telemetry.get_registry()
+    failures0 = reg.counter("dht_ingest_wave_failures_total").value
+
+    # every ERROR record of the port's loggers during the phase
+    class Errors(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.ERROR)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(self.format(record))
+
+    errors = Errors()
+    plog = logging.getLogger("opendht_tpu_torch")
+    plog.addHandler(errors)
+
+    # lookups per route, and each lookup's device-stream time (CUDA
+    # events around the launch), through the one seam both routes share
+    lookups = []
+    originals = {}
+    for cls, route in ((CT.Snapshot, "snapshot"), (CT.ChurnView, "churn")):
+        orig = originals[cls] = cls.lookup_launch
+
+        def counted(self, queries, *, _orig=orig, _route=route, **kw):
+            ev = None
+            if cuda:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            out = _orig(self, queries, **kw)
+            if ev is not None:
+                ev[1].record()
+            lookups.append({"route": _route, "q": int(queries.shape[0]),
+                            "k": int(kw.get("k", 8)), "ev": ev})
+            return out
+        cls.lookup_launch = counted
+
+    def take_lookups() -> list:
+        sync()
+        out = []
+        for lk in lookups:
+            ev = lk.pop("ev")
+            lk["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+            out.append(lk)
+        lookups.clear()
+        return out
+
+    def routes_of(lks) -> dict:
+        return {r: sum(1 for lk in lks if lk["route"] == r)
+                for r in ("snapshot", "churn")}
+
+    try:
+        # ---- config 1: 1,000 Dht.get over a 10,000-row table ---------
+        rng = np.random.default_rng(1)
+        n1, g = 10_000, args.serve_gets
+        ids1 = rng.integers(0, 2**32, size=(n1, 5), dtype=np.uint32)
+        keys_np = rng.integers(0, 2**32, size=(g, 5), dtype=np.uint32)
+        keys = [InfoHash(r.tobytes()) for r in IK.ids_to_bytes(keys_np)]
+        want1 = exact_topk_np(ids1, keys_np, SEARCH_NODES)
+        want1 = [[r.tobytes() for r in IK.ids_to_bytes(w)] for w in want1]
+        me1 = InfoHash(rng.integers(0, 256, size=20, dtype=np.uint8)
+                       .tobytes())
+
+        def config1(expire: bool, **cfg) -> dict:
+            clock = {"t": 0.0}
+            dht = Dht(lambda data, addr: 0, Config(node_id=me1, **cfg),
+                      Scheduler(clock=lambda: clock["t"]), has_v6=False,
+                      device=device)
+            dht.tables[AF].bulk_load(ids1, 0.0,
+                                     addrs=SockAddr("127.0.0.2", 4567))
+            dht.warmup()
+            first = {}
+            orig_insert = dht._refill_insert
+
+            def refill_insert(sr, nodes):
+                first.setdefault(bytes(sr.id),
+                                 [bytes(n.id) for n in nodes])
+                return orig_insert(sr, nodes)
+            dht._refill_insert = refill_insert
+            done = [0] * g
+            take_lookups()
+            window_select.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            for i, key in enumerate(keys):
+                dht.get(key, done_cb=lambda ok, ns, _i=i:
+                        done.__setitem__(_i, done[_i] + 1))
+                dht.periodic(None, None)
+            while len(first) < g:        # the last partial wave's deadline
+                clock["t"] += 0.0005
+                dht.periodic(None, None)
+            sync()
+            wall_s = time.perf_counter() - t0
+            launches = window_select.launches
+            lks = take_lookups()
+            res = {"first": first, "wall_s": wall_s, "launches": launches,
+                   "lookups": lks, "waves": dht.wave_builder.waves}
+            if expire:
+                # no peer answers: candidates expire after 3 attempts ×
+                # MAX_RESPONSE_TIME and searches expire — one at a time,
+                # since each expiry's connectivity_changed un-expires
+                # every node (src/dht.cpp searchStep), so 1,000 dead
+                # searches take thousands of virtual seconds.  Advance
+                # 6 s (past the first expiries), then shut the node
+                # down, which stops every search still running.
+                t0 = time.perf_counter()
+                while clock["t"] < 6.0:
+                    clock["t"] += 0.25
+                    dht.periodic(None, None)
+                res["done_by_expiry"] = sum(1 for n in done if n)
+                dht.shutdown()
+                res["expire_host_s"] = time.perf_counter() - t0
+                res["done"] = list(done)
+                take_lookups()
+            return res
+
+        c2 = config1(True)
+        c1 = config1(False, ingest_pipeline_depth=1)
+        coff = config1(False, ingest_batching="off")
+        firsts = [[c2["first"].get(bytes(k)) for k in keys]]
+        require(firsts[0] == want1,
+                "config 1: every get's first 14 candidates == numpy top-14")
+        require(all([c["first"].get(bytes(k)) for k in keys] == firsts[0]
+                    for c in (c1, coff)),
+                "config 1: depth 1 == depth 2 == batching off")
+        require(all(n == 1 for n in c2["done"]),
+                "config 1: every get's done_cb fired exactly once")
+        waves = c2["lookups"]
+        occ = [lk["q"] for lk in waves]
+        dev_ms = [lk["device_ms"] for lk in waves
+                  if lk["device_ms"] is not None]
+        cfg1 = {
+            "n": n1, "gets": g, "waves": len(waves),
+            "wave_occupancy": {"mean": float(np.mean(occ)), "min": min(occ),
+                               "max": max(occ)},
+            "wave_device_ms": ({"median": statistics.median(dev_ms),
+                                "max": max(dev_ms), "sum": sum(dev_ms)}
+                               if dev_ms else "not measured"),
+            "first_get_to_last_wave_s": c2["wall_s"],
+            "gets_per_s": g / c2["wall_s"],
+            "routes": routes_of(waves),
+            "window_select_launches": c2["launches"],
+            "depth1": {"wall_s": c1["wall_s"], "waves": len(c1["lookups"]),
+                       "routes": routes_of(c1["lookups"])},
+            "batching_off": {"wall_s": coff["wall_s"],
+                             "lookups": len(coff["lookups"]),
+                             "routes": routes_of(coff["lookups"])},
+            "done_cbs": {"by_search_expiry_in_6_virtual_s":
+                         c2["done_by_expiry"],
+                         "by_shutdown": g - c2["done_by_expiry"],
+                         "host_s": c2["expire_host_s"]}}
+        print(json.dumps({"serve_config1": cfg1}), file=sys.stderr,
+              flush=True)
+        if cuda:
+            require(c2["launches"] >= 1 and c1["launches"] >= 1
+                    and coff["launches"] >= 1,
+                    "config 1 launched window_select through Dht")
+
+        # ---- the live node: 1,000,000 rows, a burst over UDP ---------
+        rng = np.random.default_rng(11)
+        ln = args.serve_n
+        ids = rng.integers(0, 2**32, size=(ln, 5), dtype=np.uint32)
+        ssock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        ssock.bind(("127.0.0.1", 0))
+        ssock.setblocking(False)
+        csock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        csock.bind(("127.0.0.1", 0))
+        csock.setblocking(False)
+        client = csock.getsockname()
+
+        def server_send(data, dst):
+            # the loaded peers exist only in the table: datagrams to
+            # them are dropped here, only the client is answered
+            if (str(dst.ip), dst.port) == client:
+                ssock.sendto(data, client)
+            return 0
+
+        dht = Dht(server_send, Config(max_req_per_sec=1_000_000),
+                  has_v6=False, device=device)
+        table = dht.tables[AF]
+        t0 = time.perf_counter()
+        table.bulk_load(ids, dht.scheduler.time(),
+                        addrs=SockAddr("127.0.0.2", 4567))
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dht.warmup()
+        sync()
+        warmup_s = time.perf_counter() - t0
+        require(len(table) > CT.HOST_SCAN_MAX_ROWS, "past the host scan")
+
+        lock = threading.Lock()
+        stop = threading.Event()
+
+        steps = []          # (host s of one periodic call, had a packet)
+
+        def serve():
+            while not stop.is_set():
+                r, _, _ = select.select([ssock], [], [], 0.01)
+                with lock:
+                    t0 = time.perf_counter()
+                    if r:
+                        data, addr = ssock.recvfrom(64 * 1024)
+                        dht.periodic(data, SockAddr(addr[0], addr[1]))
+                    else:
+                        dht.periodic(None, None)
+                    steps.append((time.perf_counter() - t0, bool(r)))
+
+        # a client engine (is_client): a non-client requester is offered
+        # to the node's own searches, which then query it, and a bare
+        # engine answers without a write token — for which the node
+        # blacklists its address (Dht._on_get_values_done), silently
+        # dropping the rest of the burst
+        ceng = NetworkEngine(InfoHash.get("serve-client"), 0,
+                             lambda data, dst: csock.sendto(
+                                 data, (str(dst.ip), dst.port)) and 0,
+                             Scheduler(), EngineCallbacks(), is_client=True)
+        peer = ceng.cache.get_node(dht.myid,
+                                   SockAddr("127.0.0.1",
+                                            ssock.getsockname()[1]),
+                                   time.monotonic(), confirm=True)
+        targets_np = rng.integers(0, 2**32, size=(args.serve_q, 5),
+                                  dtype=np.uint32)
+        targets = [InfoHash(r.tobytes())
+                   for r in IK.ids_to_bytes(targets_np)]
+
+        def burst(lo: int, hi: int) -> dict:
+            """Requests lo..hi-1, alternately get / find, with at most
+            ``--serve-window`` of them unanswered at a time (the client
+            retransmits a request unanswered for 1 s and gives up after
+            3 attempts, so an unbounded burst would time itself out)."""
+            sent, answers, expired = {}, {}, []
+            t0 = time.perf_counter()
+            deadline = time.monotonic() + 120
+            nxt = lo
+            while len(answers) < hi - lo and time.monotonic() < deadline \
+                    and not expired:
+                while nxt < hi and nxt - lo - len(answers) < args.serve_window:
+                    i = nxt
+                    nxt += 1
+                    cb = (lambda r, a, _i=i: answers.__setitem__(
+                        _i, (time.perf_counter(), a)))
+                    ex = (lambda r, over, _i=i: over and expired.append(_i))
+                    sent[i] = time.perf_counter()
+                    if i % 2:
+                        ceng.send_find_node(peer, targets[i], want=1,
+                                            on_done=cb, on_expired=ex)
+                    else:
+                        ceng.send_get_values(peer, targets[i], Query(),
+                                             want=1, on_done=cb,
+                                             on_expired=ex)
+                ceng.scheduler.run()
+                r, _, _ = select.select([csock], [], [], 0.005)
+                if r:
+                    data, addr = csock.recvfrom(64 * 1024)
+                    ceng.process_message(data, SockAddr(addr[0], addr[1]))
+            wall = time.perf_counter() - t0
+            stats = dht.engine.in_stats
+            with lock:
+                slow = sorted(steps, reverse=True)[:5]
+                pkt = sorted(d for d, p in steps if p)
+                steps.clear()
+            require(len(answers) == hi - lo,
+                    f"live node: {len(answers)}/{hi - lo} answered in "
+                    f"{wall:.1f} s, {len(expired)} expired at the client, "
+                    f"server saw {stats.find} find / {stats.get} get; "
+                    f"slowest server steps {slow}; errors: "
+                    f"{errors.records[:2]}")
+            with lock:
+                live = table._ids[table.reachable_mask(0.0)]
+                lks = take_lookups()
+            want = exact_topk_np(live, targets_np[lo:hi], 8)
+            for i in range(lo, hi):
+                got = [bytes(n.id) for n in answers[i][1].nodes4]
+                require(got == [r.tobytes() for r in
+                                IK.ids_to_bytes(want[i - lo])],
+                        f"live node: request {i}'s nodes4 == numpy top-8")
+            lat = sorted(answers[i][0] - sent[i] for i in range(lo, hi))
+            return {"requests": hi - lo, "wall_s": wall, "lat": lat,
+                    "routes": routes_of(lks), "lookups": lks,
+                    "table_rows": len(live),
+                    "server_packet_step_ms": {
+                        "p50": 1e3 * pkt[len(pkt) // 2],
+                        "max": 1e3 * pkt[-1]} if pkt else None,
+                    "slowest_server_steps_ms": [
+                        [1e3 * d, p] for d, p in slow]}
+
+        th = threading.Thread(target=serve, daemon=True)
+        take_lookups()
+        window_select.launches = 0
+        th.start()
+        try:
+            half = args.serve_q // 2
+            b1 = burst(0, half)
+            # a peer joins a near-empty bucket between the halves: churn
+            # pending, so the second half is served by the churn view
+            with lock:
+                dht.insert_node(InfoHash(_near_id(bytes(dht.myid), 30,
+                                                  b"serve-join")),
+                                SockAddr("127.0.0.3", 4567))
+                pending = table.churn_pending
+            b2 = burst(half, args.serve_q)
+        finally:
+            stop.set()
+            th.join()
+            ssock.close()
+            csock.close()
+        live_launches = window_select.launches
+        lat = sorted(b1["lat"] + b2["lat"])
+        per_req = [lk["device_ms"] for lk in b1["lookups"] + b2["lookups"]
+                   if lk["q"] == 1 and lk["device_ms"] is not None]
+        live_out = {
+            "n": ln, "bulk_load_s": load_s, "warmup_s": warmup_s,
+            "requests": args.serve_q, "window": args.serve_window,
+            "requests_per_s": args.serve_q / (b1["wall_s"] + b2["wall_s"]),
+            "latency_ms": {"p50": 1e3 * lat[len(lat) // 2],
+                           "p99": 1e3 * lat[min(len(lat) - 1,
+                                                int(0.99 * len(lat)))],
+                           "max": 1e3 * lat[-1]},
+            "first_half": {k: b1[k] for k in (
+                "routes", "wall_s", "table_rows", "server_packet_step_ms",
+                "slowest_server_steps_ms")},
+            "churn_pending_after_join": pending,
+            "second_half": {k: b2[k] for k in (
+                "routes", "wall_s", "table_rows", "server_packet_step_ms",
+                "slowest_server_steps_ms")},
+            "per_request_lookup_device_ms": (
+                {"median": statistics.median(per_req), "max": max(per_req)}
+                if per_req else "not measured"),
+            "window_select_launches": live_launches}
+        require(b2["routes"]["churn"] >= 1, "the churn view served")
+        print(json.dumps({"serve_live_node": live_out}), file=sys.stderr,
+              flush=True)
+
+        # ---- the batched resolve after a forced snapshot -------------
+        table.snapshot()
+        require(table.churn_pending == 0, "snapshot folded the churn")
+        wave_np = rng.integers(0, 2**32, size=(4096, 5), dtype=np.uint32)
+        wave = [InfoHash(r.tobytes()) for r in IK.ids_to_bytes(wave_np)]
+        dht.find_closest_nodes_batched(wave, AF)          # warm
+        take_lookups()
+        window_select.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        res = dht.find_closest_nodes_batched(wave, AF)
+        sync()
+        batched_s = time.perf_counter() - t0
+        batched_launches = window_select.launches
+        blks = take_lookups()
+        live = table._ids[table.reachable_mask(0.0)]
+        want = exact_topk_np(live, wave_np, 8)
+        for i in range(len(wave)):
+            require([bytes(n.id) for n in res[i]]
+                     == [r.tobytes() for r in IK.ids_to_bytes(want[i])],
+                    f"batched resolve row {i} == numpy top-8")
+        if cuda:
+            require(live_launches >= 1, "the live node launched "
+                    "window_select through Dht")
+            require(batched_launches >= 1, "the batched resolve launched "
+                    "window_select")
+        batched = {"q": 4096, "s": batched_s,
+                   "lookups_per_s": 4096 / batched_s,
+                   "routes": routes_of(blks),
+                   "device_ms": blks[0]["device_ms"] if blks else None,
+                   "window_select_launches": batched_launches}
+
+        # ---- window_select at the serving shapes, against its plain --
+        snap = table._snap
+        shapes = {}
+        err = 0
+        for q, k in ((1, 8), (64, SEARCH_NODES), (4096, 8)):
+            qk = IK.to_keys(wave_np[:q], dev)
+            j, start = ST.expanded_window(snap.sorted_ids, snap._expanded,
+                                          snap.n_valid, qk)
+            q8 = torch.nn.functional.pad(qk, (0, 3))
+            bounds = torch.clamp(snap.n_valid - start, 0, 192)[:, None] \
+                .expand(-1, 8).contiguous()
+            got = window_select(snap._expanded, q8, bounds, k=k, row_index=j)
+            sync()
+            want_k = window_select_plain(snap._expanded, q8, bounds, k=k,
+                                         row_index=j)
+            e = max_abs_err(got, want_k)
+            err = max(err, e)
+            # the rows the queries read (each distinct row once), the
+            # row indices, queries8, bounds and the [q, 128] output
+            rows_read = int(torch.unique(j).numel())
+            nbytes = rows_read * 970 * 4 + q * (1 + 8 + 8 + 128) * 4
+            ops = q * (5 * 192 + 10 * 192 + k * (10 * 6 + 64))
+            shapes[f"q{q}_k{k}"] = {
+                "ms": median_ms(lambda: window_select(
+                    snap._expanded, q8, bounds, k=k, row_index=j),
+                    inner=20, cuda=cuda),
+                "plain_ms": median_ms(lambda: window_select_plain(
+                    snap._expanded, q8, bounds, k=k, row_index=j),
+                    reps=5, cuda=cuda),
+                "bytes": nbytes, "ops": ops,
+                "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                ops / OPS_PER_S) * 1e3,
+                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                             >= ops / OPS_PER_S else "operations"),
+                "library_ms": None, "max_abs_err": e}
+        require(err == 0, "window_select at the serving shapes == plain")
+    finally:
+        for cls, orig in originals.items():
+            cls.lookup_launch = orig
+        plog.removeHandler(errors)
+
+    failures = reg.counter("dht_ingest_wave_failures_total").value - failures0
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "serve", **card,
+          "config1": cfg1, "live_node": live_out, "batched_resolve": batched,
+          "window_select_serving_shapes": shapes,
+          "ingest_wave_failures": failures,
+          "error_records": len(errors.records), "phase_s": phase_s})
+    require(failures == 0, "no ingest wave failed")
+    require(not errors.records, "no ERROR record from the port's loggers: "
+            + "; ".join(errors.records[:3]))
+    return c2["launches"] + live_launches + batched_launches, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="table ids")
@@ -842,9 +1360,19 @@ def main(argv=None) -> int:
                     help="evictions and inserts per churn round")
     ap.add_argument("--churn-table-n", type=int, default=1_000_000,
                     help="ids of the churn phase's NodeTable check")
+    ap.add_argument("--serve-n", type=int, default=1_000_000,
+                    help="rows of the serve phase's live node")
+    ap.add_argument("--serve-q", type=int, default=512,
+                    help="requests of the live node's burst")
+    ap.add_argument("--serve-gets", type=int, default=1000,
+                    help="Dht.get calls of the serve phase's config 1")
+    ap.add_argument("--serve-window", type=int, default=4,
+                    help="live-node requests the client keeps unanswered")
     ap.add_argument("--phases", default="all",
-                    help="'all', or 'churn' to run the device, build, "
-                         "parity and main phases and then only churn")
+                    choices=("all", "churn", "serve"),
+                    help="'all', or 'churn' / 'serve' to run the device, "
+                         "build, parity and main phases and then only "
+                         "that phase")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on the host with the plain versions "
@@ -1142,7 +1670,14 @@ def main(argv=None) -> int:
     if args.phases == "all":
         search_phase(args, dev, card, sync)
         maintenance_phase(args, dev, card)
-    churn_phase(args, dev, card, sync)
+    if args.phases in ("all", "churn"):
+        churn_phase(args, dev, card, sync)
+    if args.phases in ("all", "serve"):
+        # the serve phase's own path: its window_select launches join
+        # the main path's in the kernels line
+        serve_launches, serve_err = serve_phase(args, dev, card, sync)
+        launches["window_select"] += serve_launches
+        err["window_select"] = max(err["window_select"], serve_err)
 
     kernels = []
     for name, src_line in (("window_select",

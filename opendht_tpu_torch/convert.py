@@ -1,13 +1,17 @@
-"""Carry node-table state across from the JAX package as numpy arrays.
+"""Carry node state across from the JAX package.
 
 The JAX ``NodeTable`` keeps its slab as numpy columns, its snapshot as
 device arrays and its churn view as numpy; a caller hands those over as
 numpy (``tbl._ids``, ``np.asarray(snap.sorted_ids)``, ``view.tomb_np``
-…) and gets the port's objects with the same contents.  Nothing here
-imports the JAX package.
+…) and gets the port's objects with the same contents.
+:func:`dht_from_jax` carries a whole serving node: its tables and its
+value store.  Nothing here imports the JAX package: the JAX objects are
+read through their attributes.
 """
 
 from __future__ import annotations
+
+import socket
 
 import numpy as np
 import torch
@@ -17,6 +21,7 @@ from .core.table import DELTA_CAP, TARGET_NODES, ChurnView, NodeTable, \
     Snapshot
 from .infohash import InfoHash
 from .ops import ids as IK
+from .sockaddr import SockAddr
 
 SLAB_COLUMNS = ("ids", "valid", "expired", "time_reply", "time_seen",
                 "auth_err", "bucket")
@@ -89,3 +94,51 @@ def snapshot_from_numpy(sorted_ids, perm, n_valid, device=None) -> Snapshot:
     return Snapshot(IK.to_keys(sorted_ids, dev),
                     torch.from_numpy(np.asarray(perm, np.int32).copy()).to(dev),
                     int(n_valid), version=0, mask_key=("reachable", 0))
+
+
+#: the scalar ``Config`` fields a carried node keeps (the planes' own
+#: config objects are the JAX package's classes and stay behind)
+_CONFIG_FIELDS = ("network", "is_bootstrap", "maintain_storage",
+                  "storage_limit", "max_req_per_sec", "ingest_batching",
+                  "ingest_fill_target", "ingest_deadline",
+                  "ingest_queue_max", "ingest_admit_per_sec",
+                  "ingest_pipeline_depth")
+
+
+def _addr(a):
+    """A JAX ``SockAddr`` (or None) as the port's."""
+    return None if a is None else SockAddr(a.host, a.port)
+
+
+def dht_from_jax(src, send_fn, scheduler=None, *, device=None):
+    """A port ``Dht`` carrying a JAX ``Dht``'s state: its id and scalar
+    config, one table per address family (every slab row with its
+    liveness columns and address, through :func:`node_table_from_numpy`),
+    its write-token secrets (tokens the JAX node handed out stay valid),
+    and every stored value (re-stored from its packed bytes with its
+    creation time).  Left behind: bucket replacement candidates,
+    searches, listeners, per-IP quota buckets, the planes the port does
+    not carry, and ``resolve_mesh_t`` (the sharded resolve is not
+    ported).  ``scheduler`` should share ``src``'s clock, since the
+    stored values' times are on it."""
+    from .core.value import Value
+    from .runtime import Config, Dht
+    cfg = Config(node_id=InfoHash(bytes(src.myid)),
+                 **{f: getattr(src.config, f) for f in _CONFIG_FIELDS})
+    afs = set(src.tables)
+    dst = Dht(send_fn, cfg, scheduler, has_v4=socket.AF_INET in afs,
+              has_v6=socket.AF_INET6 in afs, device=device)
+    for af, t in src.tables.items():
+        state = {name: getattr(t, "_" + name) for name in SLAB_COLUMNS}
+        state["bucket_count"] = t._bucket_count
+        state["free"] = list(t._free)
+        dst.tables[af] = node_table_from_numpy(
+            bytes(src.myid), state, [_addr(a) for a in t._addrs],
+            device=device, k=t.k)
+    dst._secret, dst._oldsecret = src._secret, src._oldsecret
+    for key, st in src.store.items():
+        for vs in st.values:
+            dst.storage_store(InfoHash(bytes(key)),
+                              Value.from_packed(vs.data.get_packed()),
+                              vs.created)
+    return dst

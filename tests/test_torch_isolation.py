@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``opendht_tpu_torch``
-pulls in neither JAX nor ``opendht_tpu``, its entry points called with
+pulls in neither JAX, ``opendht_tpu`` nor the ``msgpack`` wheel (the port
+carries its own codec), its entry points called with
 ``device=None`` on a machine without a card raise instead of running on
 the CPU, and ``chip_smoke.py`` fails without a card and rehearses every
 phase on the CPU without claiming a chip run."""
@@ -33,7 +34,8 @@ names = [m.name for m in pkgutil.walk_packages(opendht_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "opendht_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "opendht_tpu",
+                                    "msgpack"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -48,6 +50,9 @@ def test_importing_the_port_loads_no_jax():
         opendht_tpu_torch.__path__, "opendht_tpu_torch.")}
     assert set(res["modules"]) == want
     assert "opendht_tpu_torch.ops.window_select" in want
+    for mod in ("_msgpack", "utils", "net.engine", "runtime.dht",
+                "runtime.wave_builder", "runtime.live_search", "waterfall"):
+        assert f"opendht_tpu_torch.{mod}" in want
 
 
 def test_port_sources_name_no_jax_import():
@@ -59,6 +64,8 @@ def test_port_sources_name_no_jax_import():
                                      "from opendht_tpu ",
                                      "from opendht_tpu.",
                                      "import opendht_tpu.")), path
+            assert not s.startswith(("import msgpack", "from msgpack")), \
+                path
 
 
 def _entry_points():
@@ -87,6 +94,7 @@ def _entry_points():
             InfoHash.get("me")).refresh_targets([0]),
         "NodeTable.network_size_estimate": lambda: NodeTable(
             InfoHash.get("me")).network_size_estimate(),
+        "Dht": lambda: opendht_tpu_torch.Dht(lambda data, addr: 0),
     }
 
 
@@ -132,13 +140,16 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
                       "--search-n", "20000", "--search-q", "256",
                       "--search-waves", "2", "--churn-n", "20000",
                       "--churn-q", "256", "--churn-dcap", "2048",
-                      "--churn-e", "64", "--churn-table-n", "20000")
+                      "--churn-e", "64", "--churn-table-n", "20000",
+                      "--serve-n", "8192", "--serve-q", "16",
+                      "--serve-gets", "100")
     assert out.returncode == 3, out.stderr[-2000:]
     lines = [json.loads(l) for l in out.stdout.splitlines()
              if l.startswith("{")]
     phases = [l.get("phase") for l in lines]
     assert phases[:-1] == ["device", "main", "parity", "timing", "profile",
-                           "memory", "search", "maintenance", "churn"]
+                           "memory", "search", "maintenance", "churn",
+                           "serve"]
     search = lines[phases.index("search")]
     assert search["lookups"] == 2 * 256
     assert search["checks"]["goldens"] == ["lut_l5", "lut_l2", "exact_l5"]
@@ -147,6 +158,14 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
     assert churn["checks"]["tomb_heavy_rows"] == 64
     assert churn["table"]["swaps"] >= 1
     assert churn["sustained_lookups_per_s"] > 0
+    serve = lines[phases.index("serve")]
+    assert serve["config1"]["gets"] == 100
+    assert serve["config1"]["routes"]["snapshot"] == serve["config1"]["waves"]
+    assert serve["live_node"]["first_half"]["routes"]["snapshot"] >= 8
+    assert serve["live_node"]["second_half"]["routes"]["churn"] >= 8
+    assert serve["batched_resolve"]["routes"] == {"snapshot": 1, "churn": 0}
+    assert serve["ingest_wave_failures"] == 0
+    assert serve["error_records"] == 0
     kernels = lines[-1]["kernels"]
     assert [k["name"] for k in kernels] == ["window_select",
                                             "lex_topk_select"]
