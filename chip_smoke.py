@@ -90,20 +90,28 @@ Phases, one JSON line each:
              keys at the default ingest knobs (fill 64, deadline 2 ms,
              depth 2), the scheduler pumped after each get; reports the
              host time from the first get to the last wave scattered,
-             gets/s, the waves, their occupancy and device ms (CUDA
-             events), the lookups per route (snapshot = window_select,
-             churn view).  Checks: every get's first 14 candidates equal
-             a numpy exact top-14; depth 1 and batching off give the same
-             sets; with the virtual clock advanced 6 s (searches expire)
-             and the node then shut down, every done_cb fired once.  The live node (benchmarks/live_node_scale.py's shape):
-             1,000,000 seeded ids (default_rng(11)), a Dht over a real
-             localhost UDP socket served from a thread, a client
-             NetworkEngine bursting 512 alternating find / get requests
-             in two halves, a peer joining a near-empty bucket between
-             them (so the first half runs through the snapshot, the
-             second through the churn view); reports bulk-load s,
-             requests/s, p50 / p99 latency, the routes; checks every
-             nodes4 against a numpy exact top-8 over the reachable rows.
+             gets/s, the waves, their occupancy and stream span (CUDA
+             events around each wave's launch, host enqueue gaps
+             included), the lookups per route (snapshot = window_select,
+             churn view), and the same gets once more under
+             torch.profiler: device ms, kernels and copies per wave.
+             Checks: every get's first 14 candidates equal a numpy exact
+             top-14; depth 1, batching off and the traced run give the
+             same sets; in the depth-1 run, with the virtual clock
+             advanced 6 s (a few searches end by expiry) and the node
+             then shut down, every done_cb fired once.  The live node
+             (benchmarks/live_node_scale.py's shape): 1,000,000 seeded
+             ids (default_rng(11)), a Dht over a real localhost UDP
+             socket served from a thread, a client NetworkEngine sending
+             512 alternating find / get requests, SERVE_WINDOW of them
+             unanswered at a time, in two halves, a peer joining a
+             near-empty bucket between them (so the first half runs
+             through the snapshot, the second through the churn view);
+             after each half 8 more requests served one server step at a
+             time under torch.profiler (device ms, kernels and copies per
+             step); reports bulk-load s, requests/s, p50 / p99 latency,
+             the routes; checks every nodes4 against a numpy exact top-8
+             over the reachable rows.
              Then a forced snapshot() and find_closest_nodes_batched on
              4,096 seeded targets (warm, then timed): lookups/s, every row
              exact.  window_select at the serving shapes (Q=1 k=8, Q=64
@@ -135,6 +143,13 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 OPS_PER_S = 67e12              # H100 SXM 32-bit rate outside the tensor cores
+
+# Requests the serve phase's live-node client keeps unanswered.  The
+# client engine resends a request unanswered for 1 s and gives up after
+# 3 attempts, and the node answers one packet per server step, tens of
+# ms each (PERF.md §5): benchmarks/live_node_scale.py's all-at-once
+# burst of 512 would expire at the client before the node reached it.
+SERVE_WINDOW = 4
 
 
 def emit(obj) -> None:
@@ -186,6 +201,37 @@ def median_ms(fn, *, reps: int = 7, inner: int = 1, warmup: int = 2,
                 fn()
             times.append((time.perf_counter() - s) * 1e3 / inner)
     return statistics.median(times)
+
+
+DEVICE_TOTALS = ("device_ms", "kernels", "copies")
+
+
+def device_totals(prof, cuda: bool, per: int = 1) -> dict:
+    """The device-side events of a torch.profiler run (kernels, copies
+    and fills): their summed time and counts, each divided by ``per``,
+    and the eight that took the most time.  The device spans of the
+    record_function stage labels (churn.*, search.*) cover kernels
+    already counted: they are listed apart as ``stages``."""
+    import torch
+    if not cuda:
+        return dict.fromkeys(DEVICE_TOTALS + ("top", "stages"),
+                             "not measured")
+    ev, stages = [], []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            label = (getattr(e, "is_user_annotation", False)
+                     or e.key.startswith(("churn.", "search.")))
+            (stages if label else ev).append(e)
+    copies = sum(e.count for e in ev if e.key.startswith(("Memcpy", "Memset")))
+    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)
+    return {"device_ms": sum(e.self_device_time_total for e in ev) / 1e3 / per,
+            "kernels": (sum(e.count for e in ev) - copies) / per,
+            "copies": copies / per,
+            "top": [{"name": e.key[:80], "calls": e.count / per,
+                     "device_ms": e.self_device_time_total / 1e3 / per}
+                    for e in top[:8]],
+            "stages": {e.key: e.device_time_total / 1e3 / per
+                       for e in stages}}
 
 
 def host_median_ms(fn, *, reps: int = 5, warmup: int = 1) -> float:
@@ -899,11 +945,13 @@ def _near_id(me: bytes, bits: int, salt: bytes) -> bytes:
 def serve_phase(args, dev, card, sync) -> int:
     """The serving node (see the module docstring, phase 11).  Returns
     the window_select launches of the phase's three counted runs."""
+    import contextlib
     import logging
     import select
     import socket
     import threading
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from opendht_tpu_torch import telemetry
     from opendht_tpu_torch.core import table as CT
     from opendht_tpu_torch.core.value import Query
@@ -938,8 +986,9 @@ def serve_phase(args, dev, card, sync) -> int:
     plog = logging.getLogger("opendht_tpu_torch")
     plog.addHandler(errors)
 
-    # lookups per route, and each lookup's device-stream time (CUDA
-    # events around the launch), through the one seam both routes share
+    # lookups per route, and each lookup's stream span (CUDA events
+    # around the launch: its kernels and the host's enqueue gaps between
+    # them), through the one seam both routes share
     lookups = []
     originals = {}
     for cls, route in ((CT.Snapshot, "snapshot"), (CT.ChurnView, "churn")):
@@ -964,7 +1013,7 @@ def serve_phase(args, dev, card, sync) -> int:
         out = []
         for lk in lookups:
             ev = lk.pop("ev")
-            lk["device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+            lk["stream_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
             out.append(lk)
         lookups.clear()
         return out
@@ -985,7 +1034,13 @@ def serve_phase(args, dev, card, sync) -> int:
         me1 = InfoHash(rng.integers(0, 256, size=20, dtype=np.uint8)
                        .tobytes())
 
-        def config1(expire: bool, **cfg) -> dict:
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if cuda else [])
+
+        def config1(expire: bool, traced: bool = False, **cfg) -> dict:
+            """One run of the 1,000 gets; ``traced`` runs the gets under
+            torch.profiler (its wall time then carries the profiler's
+            overhead)."""
             clock = {"t": 0.0}
             dht = Dht(lambda data, addr: 0, Config(node_id=me1, **cfg),
                       Scheduler(clock=lambda: clock["t"]), has_v6=False,
@@ -1005,61 +1060,80 @@ def serve_phase(args, dev, card, sync) -> int:
             take_lookups()
             window_select.launches = 0
             sync()
-            t0 = time.perf_counter()
-            for i, key in enumerate(keys):
-                dht.get(key, done_cb=lambda ok, ns, _i=i:
-                        done.__setitem__(_i, done[_i] + 1))
-                dht.periodic(None, None)
-            while len(first) < g:        # the last partial wave's deadline
-                clock["t"] += 0.0005
-                dht.periodic(None, None)
-            sync()
-            wall_s = time.perf_counter() - t0
+            with (profile(activities=acts) if traced
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                for i, key in enumerate(keys):
+                    dht.get(key, done_cb=lambda ok, ns, _i=i:
+                            done.__setitem__(_i, done[_i] + 1))
+                    dht.periodic(None, None)
+                while len(first) < g:    # the last partial wave's deadline
+                    clock["t"] += 0.0005
+                    dht.periodic(None, None)
+                sync()
+                wall_s = time.perf_counter() - t0
             launches = window_select.launches
             lks = take_lookups()
             res = {"first": first, "wall_s": wall_s, "launches": launches,
                    "lookups": lks, "waves": dht.wave_builder.waves}
+            if traced:
+                res["device"] = device_totals(prof, cuda)
+                res["per_wave"] = device_totals(prof, cuda, max(1, len(lks)))
             if expire:
                 # no peer answers: candidates expire after 3 attempts ×
-                # MAX_RESPONSE_TIME and searches expire — one at a time,
-                # since each expiry's connectivity_changed un-expires
-                # every node (src/dht.cpp searchStep), so 1,000 dead
-                # searches take thousands of virtual seconds.  Advance
-                # 6 s (past the first expiries), then shut the node
-                # down, which stops every search still running.
+                # MAX_RESPONSE_TIME and a few searches end by expiry
+                # (tests/test_torch_dht.py holds which gets end in
+                # these 6 virtual s to the JAX node's, at depth 1 on
+                # the same table and keys: at depth 2 a wave scatters
+                # when the card is done in real time, so on a virtual
+                # clock the expiries would follow the host's speed).
+                # Then shut the node down, which ends every search
+                # still running: done_cb fires once either way.
                 t0 = time.perf_counter()
                 while clock["t"] < 6.0:
                     clock["t"] += 0.25
                     dht.periodic(None, None)
-                res["done_by_expiry"] = sum(1 for n in done if n)
+                res["done_by_expiry"] = [i for i, n in enumerate(done) if n]
                 dht.shutdown()
                 res["expire_host_s"] = time.perf_counter() - t0
                 res["done"] = list(done)
                 take_lookups()
             return res
 
-        c2 = config1(True)
-        c1 = config1(False, ingest_pipeline_depth=1)
+        c2 = config1(False)
+        c1 = config1(True, ingest_pipeline_depth=1)
         coff = config1(False, ingest_batching="off")
+        ctr = config1(False, traced=True)
         firsts = [[c2["first"].get(bytes(k)) for k in keys]]
         require(firsts[0] == want1,
                 "config 1: every get's first 14 candidates == numpy top-14")
         require(all([c["first"].get(bytes(k)) for k in keys] == firsts[0]
-                    for c in (c1, coff)),
+                    for c in (c1, coff, ctr)),
                 "config 1: depth 1 == depth 2 == batching off")
-        require(all(n == 1 for n in c2["done"]),
+        require(all(n == 1 for n in c1["done"]),
                 "config 1: every get's done_cb fired exactly once")
         waves = c2["lookups"]
         occ = [lk["q"] for lk in waves]
-        dev_ms = [lk["device_ms"] for lk in waves
-                  if lk["device_ms"] is not None]
+        span_ms = [lk["stream_ms"] for lk in waves
+                   if lk["stream_ms"] is not None]
+        tw, tdev = len(ctr["lookups"]), ctr["device"]
         cfg1 = {
             "n": n1, "gets": g, "waves": len(waves),
             "wave_occupancy": {"mean": float(np.mean(occ)), "min": min(occ),
                                "max": max(occ)},
-            "wave_device_ms": ({"median": statistics.median(dev_ms),
-                                "max": max(dev_ms), "sum": sum(dev_ms)}
-                               if dev_ms else "not measured"),
+            "wave_stream_span_ms": ({"median": statistics.median(span_ms),
+                                     "max": max(span_ms),
+                                     "sum": sum(span_ms)}
+                                    if span_ms else "not measured"),
+            # the same gets under torch.profiler: device time is that of
+            # the kernels and copies alone
+            "traced": {"waves": tw, "wall_s": ctr["wall_s"],
+                       **{k: tdev[k] for k in DEVICE_TOTALS},
+                       "per_wave": ctr["per_wave"],
+                       "device_busy_share": (
+                           tdev["device_ms"] / (1e3 * ctr["wall_s"])
+                           if cuda else "not measured"),
+                       "note": "wall_s includes the profiler's overhead"},
             "first_get_to_last_wave_s": c2["wall_s"],
             "gets_per_s": g / c2["wall_s"],
             "routes": routes_of(waves),
@@ -1070,9 +1144,10 @@ def serve_phase(args, dev, card, sync) -> int:
                              "lookups": len(coff["lookups"]),
                              "routes": routes_of(coff["lookups"])},
             "done_cbs": {"by_search_expiry_in_6_virtual_s":
-                         c2["done_by_expiry"],
-                         "by_shutdown": g - c2["done_by_expiry"],
-                         "host_s": c2["expire_host_s"]}}
+                         len(c1["done_by_expiry"]),
+                         "by_expiry_gets": c1["done_by_expiry"],
+                         "by_shutdown": g - len(c1["done_by_expiry"]),
+                         "run": "depth 1", "host_s": c1["expire_host_s"]}}
         print(json.dumps({"serve_config1": cfg1}), file=sys.stderr,
               flush=True)
         if cuda:
@@ -1112,22 +1187,18 @@ def serve_phase(args, dev, card, sync) -> int:
         warmup_s = time.perf_counter() - t0
         require(len(table) > CT.HOST_SCAN_MAX_ROWS, "past the host scan")
 
-        lock = threading.Lock()
-        stop = threading.Event()
+        steps = []      # (host s of one periodic call, had a packet)
 
-        steps = []          # (host s of one periodic call, had a packet)
-
-        def serve():
+        def serve(stop):
             while not stop.is_set():
                 r, _, _ = select.select([ssock], [], [], 0.01)
-                with lock:
-                    t0 = time.perf_counter()
-                    if r:
-                        data, addr = ssock.recvfrom(64 * 1024)
-                        dht.periodic(data, SockAddr(addr[0], addr[1]))
-                    else:
-                        dht.periodic(None, None)
-                    steps.append((time.perf_counter() - t0, bool(r)))
+                t0 = time.perf_counter()
+                if r:
+                    data, addr = ssock.recvfrom(64 * 1024)
+                    dht.periodic(data, SockAddr(addr[0], addr[1]))
+                else:
+                    dht.periodic(None, None)
+                steps.append((time.perf_counter() - t0, bool(r)))
 
         # a client engine (is_client): a non-client requester is offered
         # to the node's own searches, which then query it, and a bare
@@ -1147,107 +1218,169 @@ def serve_phase(args, dev, card, sync) -> int:
         targets = [InfoHash(r.tobytes())
                    for r in IK.ids_to_bytes(targets_np)]
 
+        def send(i, target, on_done, on_expired=None):
+            """Request i: a get when i is even, a find when it is odd."""
+            if i % 2:
+                ceng.send_find_node(peer, target, want=1, on_done=on_done,
+                                    on_expired=on_expired)
+            else:
+                ceng.send_get_values(peer, target, Query(), want=1,
+                                     on_done=on_done, on_expired=on_expired)
+
+        def check_exact(answers: list, tg_np, what: str) -> int:
+            """Every answer's nodes4 == numpy top-8 over the rows
+            reachable now; returns their count."""
+            live = table._ids[table.reachable_mask(0.0)]
+            want = exact_topk_np(live, tg_np, 8)
+            for i, a in enumerate(answers):
+                require([bytes(n.id) for n in a.nodes4]
+                        == [r.tobytes() for r in IK.ids_to_bytes(want[i])],
+                        f"live node: {what} request {i}'s nodes4 == numpy "
+                        "top-8")
+            return len(live)
+
         def burst(lo: int, hi: int) -> dict:
-            """Requests lo..hi-1, alternately get / find, with at most
-            ``--serve-window`` of them unanswered at a time (the client
-            retransmits a request unanswered for 1 s and gives up after
-            3 attempts, so an unbounded burst would time itself out)."""
+            """Requests lo..hi-1, served by a thread, with at most
+            SERVE_WINDOW of them unanswered at a time."""
             sent, answers, expired = {}, {}, []
+            stop = threading.Event()
+            th = threading.Thread(target=serve, args=(stop,), daemon=True)
             t0 = time.perf_counter()
-            deadline = time.monotonic() + 120
-            nxt = lo
-            while len(answers) < hi - lo and time.monotonic() < deadline \
-                    and not expired:
-                while nxt < hi and nxt - lo - len(answers) < args.serve_window:
-                    i = nxt
-                    nxt += 1
-                    cb = (lambda r, a, _i=i: answers.__setitem__(
-                        _i, (time.perf_counter(), a)))
-                    ex = (lambda r, over, _i=i: over and expired.append(_i))
-                    sent[i] = time.perf_counter()
-                    if i % 2:
-                        ceng.send_find_node(peer, targets[i], want=1,
-                                            on_done=cb, on_expired=ex)
-                    else:
-                        ceng.send_get_values(peer, targets[i], Query(),
-                                             want=1, on_done=cb,
-                                             on_expired=ex)
-                ceng.scheduler.run()
-                r, _, _ = select.select([csock], [], [], 0.005)
-                if r:
-                    data, addr = csock.recvfrom(64 * 1024)
-                    ceng.process_message(data, SockAddr(addr[0], addr[1]))
-            wall = time.perf_counter() - t0
+            th.start()
+            try:
+                deadline = time.monotonic() + 120
+                nxt = lo
+                while len(answers) < hi - lo and time.monotonic() < deadline \
+                        and not expired:
+                    while nxt < hi and nxt - lo - len(answers) < SERVE_WINDOW:
+                        i = nxt
+                        nxt += 1
+                        sent[i] = time.perf_counter()
+                        send(i, targets[i],
+                             lambda r, a, _i=i: answers.__setitem__(
+                                 _i, (time.perf_counter(), a)),
+                             lambda r, over, _i=i: over and expired.append(_i))
+                    ceng.scheduler.run()
+                    r, _, _ = select.select([csock], [], [], 0.005)
+                    if r:
+                        data, addr = csock.recvfrom(64 * 1024)
+                        ceng.process_message(data, SockAddr(addr[0], addr[1]))
+                wall = time.perf_counter() - t0
+            finally:
+                stop.set()
+                th.join()
             stats = dht.engine.in_stats
-            with lock:
-                slow = sorted(steps, reverse=True)[:5]
-                pkt = sorted(d for d, p in steps if p)
-                steps.clear()
+            # the slowest steps with their index in the burst's steps
+            slow = sorted(((d, p, s) for s, (d, p) in enumerate(steps)),
+                          reverse=True)[:5]
+            pkt = sorted(d for d, p in steps if p)
+            steps.clear()
             require(len(answers) == hi - lo,
                     f"live node: {len(answers)}/{hi - lo} answered in "
                     f"{wall:.1f} s, {len(expired)} expired at the client, "
                     f"server saw {stats.find} find / {stats.get} get; "
                     f"slowest server steps {slow}; errors: "
                     f"{errors.records[:2]}")
-            with lock:
-                live = table._ids[table.reachable_mask(0.0)]
-                lks = take_lookups()
-            want = exact_topk_np(live, targets_np[lo:hi], 8)
-            for i in range(lo, hi):
-                got = [bytes(n.id) for n in answers[i][1].nodes4]
-                require(got == [r.tobytes() for r in
-                                IK.ids_to_bytes(want[i - lo])],
-                        f"live node: request {i}'s nodes4 == numpy top-8")
+            lks = take_lookups()
+            rows = check_exact([answers[i][1] for i in range(lo, hi)],
+                               targets_np[lo:hi], "burst")
             lat = sorted(answers[i][0] - sent[i] for i in range(lo, hi))
             return {"requests": hi - lo, "wall_s": wall, "lat": lat,
                     "routes": routes_of(lks), "lookups": lks,
-                    "table_rows": len(live),
+                    "table_rows": rows,
                     "server_packet_step_ms": {
                         "p50": 1e3 * pkt[len(pkt) // 2],
                         "max": 1e3 * pkt[-1]} if pkt else None,
-                    "slowest_server_steps_ms": [
-                        [1e3 * d, p] for d, p in slow]}
+                    "slowest_server_steps_ms_packet_index": [
+                        [1e3 * d, p, s] for d, p, s in slow]}
 
-        th = threading.Thread(target=serve, daemon=True)
+        def traced(seed: int, n: int, b: dict) -> dict:
+            """n more requests (targets from default_rng(seed)), each
+            served in this thread by dht.periodic under torch.profiler:
+            the device time, kernels and copies per server step, beside
+            the step's host time; every answer exact.  The burst ``b``
+            before it gets its device busy share estimated as the
+            traced steps' device ms per step × its requests over its
+            wall time."""
+            tg_np = np.random.default_rng(seed).integers(
+                0, 2**32, size=(n, 5), dtype=np.uint32)
+            answers, walls = {}, []
+            with profile(activities=acts) as prof:
+                for i, raw in enumerate(IK.ids_to_bytes(tg_np)):
+                    send(i, InfoHash(raw.tobytes()),
+                         lambda r, a, _i=i: answers.__setitem__(_i, a))
+                    end = time.monotonic() + 10
+                    while i not in answers and time.monotonic() < end:
+                        ready, _, _ = select.select([ssock, csock], [], [],
+                                                    0.05)
+                        if ssock in ready:
+                            data, addr = ssock.recvfrom(64 * 1024)
+                            t0 = time.perf_counter()
+                            dht.periodic(data, SockAddr(addr[0], addr[1]))
+                            sync()
+                            walls.append(time.perf_counter() - t0)
+                        if csock in ready:
+                            data, addr = csock.recvfrom(64 * 1024)
+                            ceng.process_message(data,
+                                                 SockAddr(addr[0], addr[1]))
+            require(len(answers) == n,
+                    f"live node: {len(answers)}/{n} traced requests answered")
+            check_exact([answers[i] for i in range(n)], tg_np, "traced")
+            lks = take_lookups()
+            dev = device_totals(prof, cuda)
+            ns = len(walls)
+            per = device_totals(prof, cuda, ns)
+            walls.sort()
+            return {"requests": n, "server_steps": ns,
+                    "routes": routes_of(lks),
+                    "step_ms": {"p50": 1e3 * walls[ns // 2],
+                                "max": 1e3 * walls[-1]},
+                    **{k: dev[k] for k in DEVICE_TOTALS}, "per_step": per,
+                    "device_busy_share_of_steps": (
+                        dev["device_ms"] / (1e3 * sum(walls))
+                        if cuda else "not measured"),
+                    "burst_device_busy_share_est": (
+                        per["device_ms"] * b["requests"]
+                        / (1e3 * b["wall_s"]) if cuda else "not measured"),
+                    "note": "step_ms includes the profiler's overhead"}
+
         take_lookups()
         window_select.launches = 0
-        th.start()
         try:
             half = args.serve_q // 2
             b1 = burst(0, half)
+            t1 = traced(12, 8, b1)
             # a peer joins a near-empty bucket between the halves: churn
             # pending, so the second half is served by the churn view
-            with lock:
-                dht.insert_node(InfoHash(_near_id(bytes(dht.myid), 30,
-                                                  b"serve-join")),
-                                SockAddr("127.0.0.3", 4567))
-                pending = table.churn_pending
+            dht.insert_node(InfoHash(_near_id(bytes(dht.myid), 30,
+                                              b"serve-join")),
+                            SockAddr("127.0.0.3", 4567))
+            pending = table.churn_pending
             b2 = burst(half, args.serve_q)
+            t2 = traced(13, 8, b2)
         finally:
-            stop.set()
-            th.join()
             ssock.close()
             csock.close()
         live_launches = window_select.launches
         lat = sorted(b1["lat"] + b2["lat"])
-        per_req = [lk["device_ms"] for lk in b1["lookups"] + b2["lookups"]
-                   if lk["q"] == 1 and lk["device_ms"] is not None]
+        per_req = [lk["stream_ms"] for lk in b1["lookups"] + b2["lookups"]
+                   if lk["q"] == 1 and lk["stream_ms"] is not None]
+        half_keys = ("routes", "wall_s", "table_rows", "server_packet_step_ms",
+                     "slowest_server_steps_ms_packet_index")
         live_out = {
             "n": ln, "bulk_load_s": load_s, "warmup_s": warmup_s,
-            "requests": args.serve_q, "window": args.serve_window,
+            "requests": args.serve_q, "window": SERVE_WINDOW,
             "requests_per_s": args.serve_q / (b1["wall_s"] + b2["wall_s"]),
             "latency_ms": {"p50": 1e3 * lat[len(lat) // 2],
                            "p99": 1e3 * lat[min(len(lat) - 1,
                                                 int(0.99 * len(lat)))],
                            "max": 1e3 * lat[-1]},
-            "first_half": {k: b1[k] for k in (
-                "routes", "wall_s", "table_rows", "server_packet_step_ms",
-                "slowest_server_steps_ms")},
+            "first_half": {k: b1[k] for k in half_keys},
+            "traced_after_first_half": t1,
             "churn_pending_after_join": pending,
-            "second_half": {k: b2[k] for k in (
-                "routes", "wall_s", "table_rows", "server_packet_step_ms",
-                "slowest_server_steps_ms")},
-            "per_request_lookup_device_ms": (
+            "second_half": {k: b2[k] for k in half_keys},
+            "traced_after_second_half": t2,
+            "per_request_lookup_stream_span_ms": (
                 {"median": statistics.median(per_req), "max": max(per_req)}
                 if per_req else "not measured"),
             "window_select_launches": live_launches}
@@ -1284,7 +1417,7 @@ def serve_phase(args, dev, card, sync) -> int:
         batched = {"q": 4096, "s": batched_s,
                    "lookups_per_s": 4096 / batched_s,
                    "routes": routes_of(blks),
-                   "device_ms": blks[0]["device_ms"] if blks else None,
+                   "stream_span_ms": blks[0]["stream_ms"] if blks else None,
                    "window_select_launches": batched_launches}
 
         # ---- window_select at the serving shapes, against its plain --
@@ -1366,8 +1499,6 @@ def main(argv=None) -> int:
                     help="requests of the live node's burst")
     ap.add_argument("--serve-gets", type=int, default=1000,
                     help="Dht.get calls of the serve phase's config 1")
-    ap.add_argument("--serve-window", type=int, default=4,
-                    help="live-node requests the client keeps unanswered")
     ap.add_argument("--phases", default="all",
                     choices=("all", "churn", "serve"),
                     help="'all', or 'churn' / 'serve' to run the device, "

@@ -444,6 +444,86 @@ def test_pipeline_depths_and_off_give_the_same_cluster_results(monkeypatch):
     assert run(ingest_batching="off") == d2
 
 
+def test_config1_gets_end_by_expiry_as_on_the_jax_node(monkeypatch):
+    """BASELINE config 1 (10,000 rows, node id and 1,000 keys from
+    default_rng(1), a transport that swallows every datagram, the
+    scheduler pumped after each get) at ingest pipeline depth 1, as
+    chip_smoke.py's serve phase runs it: with the virtual clock advanced
+    6 s, the same gets have ended by search expiry on the port's node as
+    on the JAX node, after the same datagrams at the same virtual times;
+    shutdown() then ends every other get, each done_cb once.
+
+    Depth 1 scatters a wave inside the job that launched it.  At depth 2
+    a wave scatters when the device's handle is ready in real time, so
+    on a virtual clock which searches expire would follow the host's
+    speed.  The bucket maintenance's refresh targets are random draws
+    (jax.random in one table, torch in the other): the port's node is
+    handed the JAX node's draws, its own stale buckets held equal."""
+    n_gets = 1000
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 2 ** 32, size=(10_000, 5), dtype=np.uint32)
+    keys = [bytes(r) for r in IK.ids_to_bytes(
+        rng.integers(0, 2 ** 32, size=(n_gets, 5), dtype=np.uint32))]
+    me = rng.integers(0, 256, size=20, dtype=np.uint8).tobytes()
+    sweeps = []                 # the JAX node's (stale, refresh targets)
+
+    def run(pkg):
+        M = _mods(pkg)
+        _seeded(monkeypatch, 1)
+        clock = {"t": 0.0}
+        sent = []
+        cfg = _jax_planes_off() if pkg == JAX else {}
+        kw = {"device": "cpu"} if pkg == PORT else {}
+        dht = M["Dht"](lambda d, a: sent.append((clock["t"], str(a),
+                                                 bytes(d))) and 0,
+                       M["Config"](node_id=M["InfoHash"](me),
+                                   ingest_pipeline_depth=1, **cfg),
+                       M["Scheduler"](clock=lambda: clock["t"]),
+                       has_v6=False, **kw)
+        table = dht.tables[AF]
+        table.bulk_load(ids, 0.0, addrs=M["SockAddr"]("127.0.0.2", 4567))
+        dht.warmup()
+        orig_sweep = table.maintenance_sweep
+
+        def sweep(now, *a, **kw):
+            stale, targets = orig_sweep(now, *a, **kw)
+            if pkg == JAX:
+                sweeps.append((stale, targets))
+                return stale, targets
+            jax_stale, jax_targets = sweeps.pop(0)
+            assert np.array_equal(stale, jax_stale)
+            return jax_stale, jax_targets
+        table.maintenance_sweep = sweep
+        first, done = {}, [0] * n_gets
+        orig_insert = dht._refill_insert
+
+        def refill_insert(sr, nodes):
+            first.setdefault(bytes(sr.id), [bytes(n.id) for n in nodes])
+            return orig_insert(sr, nodes)
+        dht._refill_insert = refill_insert
+        for i, key in enumerate(keys):
+            dht.get(M["InfoHash"](key), done_cb=lambda ok, ns, _i=i:
+                    done.__setitem__(_i, done[_i] + 1))
+            dht.periodic(None, None)
+        while len(first) < n_gets:       # the last partial wave's deadline
+            clock["t"] += 0.0005
+            dht.periodic(None, None)
+        while clock["t"] < 6.0:
+            clock["t"] += 0.25
+            dht.periodic(None, None)
+        by_expiry = [i for i, n in enumerate(done) if n]
+        dht.shutdown()
+        return by_expiry, done, [first[k] for k in keys], sent
+
+    jax_expired, jax_done, jax_first, jax_sent = run(JAX)
+    port_expired, port_done, port_first, port_sent = run(PORT)
+    assert not sweeps
+    assert port_first == jax_first
+    assert port_sent == jax_sent
+    assert port_expired == jax_expired and len(port_expired) >= 1
+    assert port_done == jax_done == [1] * n_gets
+
+
 # ------------------------------------------- a live node past host scan
 def _exact_top_ids(ids: np.ndarray, target: InfoHash, k: int) -> list:
     d = ids ^ IK.ids_from_hashes([target])[0]
