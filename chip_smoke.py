@@ -118,13 +118,39 @@ Phases, one JSON line each:
              k=14, Q=4096 k=8) against its plain version, with times and
              byte bounds.  Fails on any ingest wave failure or ERROR
              record of the port's loggers.  (--serve-* flags size it.)
+12. runner — the runner layer on the card: one DhtRunner (its receive,
+             DHT and bootstrap threads over the native C++ datagram
+             engine, which must carry the traffic) with
+             Config(max_req_per_sec=1_000_000), serving the serve
+             phase's live node and burst (live_node_data): on its DHT
+             thread, as a posted op, the ids bulk-loaded at loopback
+             addresses and warmup() run again.  A client NetworkEngine
+             (is_client) sends the alternating find / get requests,
+             SERVE_WINDOW of them unanswered at a time, all through the
+             snapshot, and window_select's launches must be at least
+             their count.  Then a peer joins a near-empty bucket on the
+             DHT thread and half as many requests more go through the
+             churn view; then a background compaction is started on the
+             DHT thread and 8 more requests are served while the node
+             installs it there.  Every nodes4 equals a numpy exact top-8
+             over the reachable rows (read on the DHT thread); each run
+             reports requests/s, p50 / p99 latency, the node's
+             per-packet step and pumps and the lookups per route.  Then
+             three more runners on the card bootstrap to each other:
+             put_sync / get_sync of RUNNER_VALUES values across them and
+             one listen round-trip.  Fails on any ERROR record of the port's
+             loggers, ingest wave failure, "dropping packet with high
+             delay" warning, datagram sent off loopback,
+             ``cryptography`` / ``argon2`` in sys.modules, or runner
+             thread left alive after every runner is joined.
+             (--serve-n / --serve-q size it with the serve phase.)
 
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failure raises (nonzero exit, no ok line).  Without a card it exits
 nonzero before any result; ``--cpu`` rehearses every phase on the host
 with the plain versions and also ends without the ok line, as does a
-partial run (``--phases churn`` or ``--phases serve``: phases 1-7, then
-only that phase).
+partial run (``--phases churn``, ``--phases serve`` or ``--phases
+runner``: phases 1-7, then only that phase).
 """
 
 from __future__ import annotations
@@ -132,6 +158,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -150,6 +177,8 @@ OPS_PER_S = 67e12              # H100 SXM 32-bit rate outside the tensor cores
 # ms each (PERF.md §5): benchmarks/live_node_scale.py's all-at-once
 # burst of 512 would expire at the client before the node reached it.
 SERVE_WINDOW = 4
+# values put and got across the runner phase's small cluster
+RUNNER_VALUES = 64
 
 
 def emit(obj) -> None:
@@ -942,11 +971,181 @@ def _near_id(me: bytes, bits: int, salt: bytes) -> bytes:
     return bytes(raw)
 
 
+class PortRecords(logging.Handler):
+    """While open: the ERROR records of the port's loggers, and the
+    runner's warnings that it dropped a packet for its delay."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.errors, self.delay_drops = [], []
+
+    def emit(self, record):
+        msg = self.format(record)
+        if record.levelno >= logging.ERROR:
+            self.errors.append(msg)
+        elif "dropping packet with high delay" in msg:
+            self.delay_drops.append(msg)
+
+    def __enter__(self):
+        logging.getLogger("opendht_tpu_torch").addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("opendht_tpu_torch").removeHandler(self)
+
+
+class LookupRoutes:
+    """While open: every lookup of the node, with its route (snapshot or
+    churn view), Q and k and, on the card, its stream span (CUDA events
+    around the launch: its kernels and the host's enqueue gaps between
+    them), through the one seam both routes share."""
+
+    def __init__(self, cuda: bool, sync):
+        self.cuda, self.sync = cuda, sync
+        self._lookups, self._originals = [], {}
+
+    def __enter__(self):
+        import torch
+        from opendht_tpu_torch.core import table as CT
+        for cls, route in ((CT.Snapshot, "snapshot"),
+                           (CT.ChurnView, "churn")):
+            orig = self._originals[cls] = cls.lookup_launch
+
+            def counted(view, queries, *, _orig=orig, _route=route, **kw):
+                ev = None
+                if self.cuda:
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                out = _orig(view, queries, **kw)
+                if ev is not None:
+                    ev[1].record()
+                self._lookups.append({"route": _route,
+                                      "q": int(queries.shape[0]),
+                                      "k": int(kw.get("k", 8)), "ev": ev})
+                return out
+            cls.lookup_launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self._originals.items():
+            cls.lookup_launch = orig
+
+    def take(self) -> list:
+        """The lookups since the last take, with their spans.  Another
+        thread may add lookups meanwhile: those taken were all recorded
+        before the sync."""
+        out = self._lookups[:]
+        del self._lookups[:len(out)]
+        self.sync()
+        for lk in out:
+            ev = lk.pop("ev")
+            lk["stream_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+        return out
+
+    @staticmethod
+    def routes(lks) -> dict:
+        return {r: sum(1 for lk in lks if lk["route"] == r)
+                for r in ("snapshot", "churn")}
+
+
+def client_engine(csock, name: str, node_id, port: int):
+    """A client NetworkEngine on ``csock`` and the node at 127.0.0.1:port
+    it asks.  A client (is_client): a non-client requester is offered to
+    the node's own searches, which then query it, and a bare engine
+    answers without a write token — for which the node blacklists its
+    address (Dht._on_get_values_done), silently dropping the rest of a
+    burst."""
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.net.engine import EngineCallbacks, NetworkEngine
+    from opendht_tpu_torch.scheduler import Scheduler
+    from opendht_tpu_torch.sockaddr import SockAddr
+    ceng = NetworkEngine(InfoHash.get(name), 0,
+                         lambda data, dst: csock.sendto(
+                             data, (str(dst.ip), dst.port)) and 0,
+                         Scheduler(), EngineCallbacks(), is_client=True)
+    peer = ceng.cache.get_node(node_id, SockAddr("127.0.0.1", port),
+                               time.monotonic(), confirm=True)
+    return ceng, peer
+
+
+def send_request(ceng, peer, i: int, target, on_done, on_expired=None):
+    """Request i: a get when i is even, a find when it is odd."""
+    from opendht_tpu_torch.core.value import Query
+    if i % 2:
+        ceng.send_find_node(peer, target, want=1, on_done=on_done,
+                            on_expired=on_expired)
+    else:
+        ceng.send_get_values(peer, target, Query(), want=1, on_done=on_done,
+                             on_expired=on_expired)
+
+
+def client_burst(ceng, peer, csock, targets: list, lo: int, hi: int,
+                 timeout_s: float) -> dict:
+    """Requests lo..hi-1 (to targets[i]) with at most SERVE_WINDOW of
+    them unanswered at a time, until every one is answered, one expires
+    at the client or ``timeout_s`` passes.  Returns the answers by
+    request, the sorted latencies (s), the expired requests and the wall
+    time (s)."""
+    import select
+    from opendht_tpu_torch.sockaddr import SockAddr
+    sent, answers, expired = {}, {}, []
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + timeout_s
+    nxt = lo
+    while len(answers) < hi - lo and time.monotonic() < deadline \
+            and not expired:
+        while nxt < hi and nxt - lo - len(answers) < SERVE_WINDOW:
+            i = nxt
+            nxt += 1
+            sent[i] = time.perf_counter()
+            send_request(ceng, peer, i, targets[i],
+                         lambda r, a, _i=i: answers.__setitem__(
+                             _i, (time.perf_counter(), a)),
+                         lambda r, over, _i=i: over and expired.append(_i))
+        ceng.scheduler.run()
+        r, _, _ = select.select([csock], [], [], 0.005)
+        if r:
+            data, addr = csock.recvfrom(64 * 1024)
+            ceng.process_message(data, SockAddr(addr[0], addr[1]))
+    return {"answers": {i: a for i, (_, a) in answers.items()},
+            "lat": sorted(t - sent[i] for i, (t, _) in answers.items()),
+            "expired": expired, "wall_s": time.perf_counter() - t0}
+
+
+def require_exact(answers: list, live: np.ndarray, targets_np: np.ndarray,
+                  what: str) -> None:
+    """Every answer's nodes4 == a numpy exact top-8 over ``live`` (the
+    node's reachable rows)."""
+    from opendht_tpu_torch.ops import ids as IK
+    want = exact_topk_np(live, targets_np, 8)
+    for i, a in enumerate(answers):
+        require([bytes(n.id) for n in a.nodes4]
+                == [r.tobytes() for r in IK.ids_to_bytes(want[i])],
+                f"{what}: request {i}'s nodes4 == numpy top-8")
+
+
+def latency_ms(lat: list) -> dict:
+    """p50 / p99 / max in ms of sorted latencies in s."""
+    return {"p50": 1e3 * lat[len(lat) // 2],
+            "p99": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            "max": 1e3 * lat[-1]}
+
+
+def live_node_data(args):
+    """The live node of the serve and runner phases: its seeded ids
+    (--serve-n), the targets of its burst (--serve-q) and the generator
+    they came from."""
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, 2**32, size=(args.serve_n, 5), dtype=np.uint32)
+    targets = rng.integers(0, 2**32, size=(args.serve_q, 5), dtype=np.uint32)
+    return rng, ids, targets
+
+
 def serve_phase(args, dev, card, sync) -> int:
     """The serving node (see the module docstring, phase 11).  Returns
     the window_select launches of the phase's three counted runs."""
     import contextlib
-    import logging
     import select
     import socket
     import threading
@@ -954,9 +1153,7 @@ def serve_phase(args, dev, card, sync) -> int:
     from torch.profiler import ProfilerActivity, profile
     from opendht_tpu_torch import telemetry
     from opendht_tpu_torch.core import table as CT
-    from opendht_tpu_torch.core.value import Query
     from opendht_tpu_torch.infohash import InfoHash
-    from opendht_tpu_torch.net.engine import EngineCallbacks, NetworkEngine
     from opendht_tpu_torch.ops import ids as IK
     from opendht_tpu_torch.ops import sorted_table as ST
     from opendht_tpu_torch.ops.window_select import (window_select,
@@ -973,56 +1170,7 @@ def serve_phase(args, dev, card, sync) -> int:
     reg = telemetry.get_registry()
     failures0 = reg.counter("dht_ingest_wave_failures_total").value
 
-    # every ERROR record of the port's loggers during the phase
-    class Errors(logging.Handler):
-        def __init__(self):
-            super().__init__(logging.ERROR)
-            self.records = []
-
-        def emit(self, record):
-            self.records.append(self.format(record))
-
-    errors = Errors()
-    plog = logging.getLogger("opendht_tpu_torch")
-    plog.addHandler(errors)
-
-    # lookups per route, and each lookup's stream span (CUDA events
-    # around the launch: its kernels and the host's enqueue gaps between
-    # them), through the one seam both routes share
-    lookups = []
-    originals = {}
-    for cls, route in ((CT.Snapshot, "snapshot"), (CT.ChurnView, "churn")):
-        orig = originals[cls] = cls.lookup_launch
-
-        def counted(self, queries, *, _orig=orig, _route=route, **kw):
-            ev = None
-            if cuda:
-                ev = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-                ev[0].record()
-            out = _orig(self, queries, **kw)
-            if ev is not None:
-                ev[1].record()
-            lookups.append({"route": _route, "q": int(queries.shape[0]),
-                            "k": int(kw.get("k", 8)), "ev": ev})
-            return out
-        cls.lookup_launch = counted
-
-    def take_lookups() -> list:
-        sync()
-        out = []
-        for lk in lookups:
-            ev = lk.pop("ev")
-            lk["stream_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
-            out.append(lk)
-        lookups.clear()
-        return out
-
-    def routes_of(lks) -> dict:
-        return {r: sum(1 for lk in lks if lk["route"] == r)
-                for r in ("snapshot", "churn")}
-
-    try:
+    with PortRecords() as records, LookupRoutes(cuda, sync) as lookups:
         # ---- config 1: 1,000 Dht.get over a 10,000-row table ---------
         rng = np.random.default_rng(1)
         n1, g = 10_000, args.serve_gets
@@ -1057,7 +1205,7 @@ def serve_phase(args, dev, card, sync) -> int:
                 return orig_insert(sr, nodes)
             dht._refill_insert = refill_insert
             done = [0] * g
-            take_lookups()
+            lookups.take()
             window_select.launches = 0
             sync()
             with (profile(activities=acts) if traced
@@ -1073,7 +1221,7 @@ def serve_phase(args, dev, card, sync) -> int:
                 sync()
                 wall_s = time.perf_counter() - t0
             launches = window_select.launches
-            lks = take_lookups()
+            lks = lookups.take()
             res = {"first": first, "wall_s": wall_s, "launches": launches,
                    "lookups": lks, "waves": dht.wave_builder.waves}
             if traced:
@@ -1097,7 +1245,7 @@ def serve_phase(args, dev, card, sync) -> int:
                 dht.shutdown()
                 res["expire_host_s"] = time.perf_counter() - t0
                 res["done"] = list(done)
-                take_lookups()
+                lookups.take()
             return res
 
         c2 = config1(False)
@@ -1136,13 +1284,13 @@ def serve_phase(args, dev, card, sync) -> int:
                        "note": "wall_s includes the profiler's overhead"},
             "first_get_to_last_wave_s": c2["wall_s"],
             "gets_per_s": g / c2["wall_s"],
-            "routes": routes_of(waves),
+            "routes": LookupRoutes.routes(waves),
             "window_select_launches": c2["launches"],
             "depth1": {"wall_s": c1["wall_s"], "waves": len(c1["lookups"]),
-                       "routes": routes_of(c1["lookups"])},
+                       "routes": LookupRoutes.routes(c1["lookups"])},
             "batching_off": {"wall_s": coff["wall_s"],
                              "lookups": len(coff["lookups"]),
-                             "routes": routes_of(coff["lookups"])},
+                             "routes": LookupRoutes.routes(coff["lookups"])},
             "done_cbs": {"by_search_expiry_in_6_virtual_s":
                          len(c1["done_by_expiry"]),
                          "by_expiry_gets": c1["done_by_expiry"],
@@ -1156,9 +1304,8 @@ def serve_phase(args, dev, card, sync) -> int:
                     "config 1 launched window_select through Dht")
 
         # ---- the live node: 1,000,000 rows, a burst over UDP ---------
-        rng = np.random.default_rng(11)
         ln = args.serve_n
-        ids = rng.integers(0, 2**32, size=(ln, 5), dtype=np.uint32)
+        rng, ids, targets_np = live_node_data(args)
         ssock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
         ssock.bind(("127.0.0.1", 0))
         ssock.setblocking(False)
@@ -1200,72 +1347,25 @@ def serve_phase(args, dev, card, sync) -> int:
                     dht.periodic(None, None)
                 steps.append((time.perf_counter() - t0, bool(r)))
 
-        # a client engine (is_client): a non-client requester is offered
-        # to the node's own searches, which then query it, and a bare
-        # engine answers without a write token — for which the node
-        # blacklists its address (Dht._on_get_values_done), silently
-        # dropping the rest of the burst
-        ceng = NetworkEngine(InfoHash.get("serve-client"), 0,
-                             lambda data, dst: csock.sendto(
-                                 data, (str(dst.ip), dst.port)) and 0,
-                             Scheduler(), EngineCallbacks(), is_client=True)
-        peer = ceng.cache.get_node(dht.myid,
-                                   SockAddr("127.0.0.1",
-                                            ssock.getsockname()[1]),
-                                   time.monotonic(), confirm=True)
-        targets_np = rng.integers(0, 2**32, size=(args.serve_q, 5),
-                                  dtype=np.uint32)
+        ceng, peer = client_engine(csock, "serve-client", dht.myid,
+                                   ssock.getsockname()[1])
         targets = [InfoHash(r.tobytes())
                    for r in IK.ids_to_bytes(targets_np)]
 
-        def send(i, target, on_done, on_expired=None):
-            """Request i: a get when i is even, a find when it is odd."""
-            if i % 2:
-                ceng.send_find_node(peer, target, want=1, on_done=on_done,
-                                    on_expired=on_expired)
-            else:
-                ceng.send_get_values(peer, target, Query(), want=1,
-                                     on_done=on_done, on_expired=on_expired)
-
         def check_exact(answers: list, tg_np, what: str) -> int:
-            """Every answer's nodes4 == numpy top-8 over the rows
-            reachable now; returns their count."""
+            """Every answer against the rows reachable now; returns
+            their count."""
             live = table._ids[table.reachable_mask(0.0)]
-            want = exact_topk_np(live, tg_np, 8)
-            for i, a in enumerate(answers):
-                require([bytes(n.id) for n in a.nodes4]
-                        == [r.tobytes() for r in IK.ids_to_bytes(want[i])],
-                        f"live node: {what} request {i}'s nodes4 == numpy "
-                        "top-8")
+            require_exact(answers, live, tg_np, f"live node: {what}")
             return len(live)
 
         def burst(lo: int, hi: int) -> dict:
-            """Requests lo..hi-1, served by a thread, with at most
-            SERVE_WINDOW of them unanswered at a time."""
-            sent, answers, expired = {}, {}, []
+            """Requests lo..hi-1 from the client, served by a thread."""
             stop = threading.Event()
             th = threading.Thread(target=serve, args=(stop,), daemon=True)
-            t0 = time.perf_counter()
             th.start()
             try:
-                deadline = time.monotonic() + 120
-                nxt = lo
-                while len(answers) < hi - lo and time.monotonic() < deadline \
-                        and not expired:
-                    while nxt < hi and nxt - lo - len(answers) < SERVE_WINDOW:
-                        i = nxt
-                        nxt += 1
-                        sent[i] = time.perf_counter()
-                        send(i, targets[i],
-                             lambda r, a, _i=i: answers.__setitem__(
-                                 _i, (time.perf_counter(), a)),
-                             lambda r, over, _i=i: over and expired.append(_i))
-                    ceng.scheduler.run()
-                    r, _, _ = select.select([csock], [], [], 0.005)
-                    if r:
-                        data, addr = csock.recvfrom(64 * 1024)
-                        ceng.process_message(data, SockAddr(addr[0], addr[1]))
-                wall = time.perf_counter() - t0
+                b = client_burst(ceng, peer, csock, targets, lo, hi, 120)
             finally:
                 stop.set()
                 th.join()
@@ -1275,18 +1375,18 @@ def serve_phase(args, dev, card, sync) -> int:
                           reverse=True)[:5]
             pkt = sorted(d for d, p in steps if p)
             steps.clear()
+            answers, wall = b["answers"], b["wall_s"]
             require(len(answers) == hi - lo,
                     f"live node: {len(answers)}/{hi - lo} answered in "
-                    f"{wall:.1f} s, {len(expired)} expired at the client, "
-                    f"server saw {stats.find} find / {stats.get} get; "
-                    f"slowest server steps {slow}; errors: "
-                    f"{errors.records[:2]}")
-            lks = take_lookups()
-            rows = check_exact([answers[i][1] for i in range(lo, hi)],
+                    f"{wall:.1f} s, {len(b['expired'])} expired at the "
+                    f"client, server saw {stats.find} find / {stats.get} "
+                    f"get; slowest server steps {slow}; errors: "
+                    f"{records.errors[:2]}")
+            lks = lookups.take()
+            rows = check_exact([answers[i] for i in range(lo, hi)],
                                targets_np[lo:hi], "burst")
-            lat = sorted(answers[i][0] - sent[i] for i in range(lo, hi))
-            return {"requests": hi - lo, "wall_s": wall, "lat": lat,
-                    "routes": routes_of(lks), "lookups": lks,
+            return {"requests": hi - lo, "wall_s": wall, "lat": b["lat"],
+                    "routes": LookupRoutes.routes(lks), "lookups": lks,
                     "table_rows": rows,
                     "server_packet_step_ms": {
                         "p50": 1e3 * pkt[len(pkt) // 2],
@@ -1307,8 +1407,8 @@ def serve_phase(args, dev, card, sync) -> int:
             answers, walls = {}, []
             with profile(activities=acts) as prof:
                 for i, raw in enumerate(IK.ids_to_bytes(tg_np)):
-                    send(i, InfoHash(raw.tobytes()),
-                         lambda r, a, _i=i: answers.__setitem__(_i, a))
+                    send_request(ceng, peer, i, InfoHash(raw.tobytes()),
+                                 lambda r, a, _i=i: answers.__setitem__(_i, a))
                     end = time.monotonic() + 10
                     while i not in answers and time.monotonic() < end:
                         ready, _, _ = select.select([ssock, csock], [], [],
@@ -1326,13 +1426,13 @@ def serve_phase(args, dev, card, sync) -> int:
             require(len(answers) == n,
                     f"live node: {len(answers)}/{n} traced requests answered")
             check_exact([answers[i] for i in range(n)], tg_np, "traced")
-            lks = take_lookups()
+            lks = lookups.take()
             dev = device_totals(prof, cuda)
             ns = len(walls)
             per = device_totals(prof, cuda, ns)
             walls.sort()
             return {"requests": n, "server_steps": ns,
-                    "routes": routes_of(lks),
+                    "routes": LookupRoutes.routes(lks),
                     "step_ms": {"p50": 1e3 * walls[ns // 2],
                                 "max": 1e3 * walls[-1]},
                     **{k: dev[k] for k in DEVICE_TOTALS}, "per_step": per,
@@ -1344,7 +1444,7 @@ def serve_phase(args, dev, card, sync) -> int:
                         / (1e3 * b["wall_s"]) if cuda else "not measured"),
                     "note": "step_ms includes the profiler's overhead"}
 
-        take_lookups()
+        lookups.take()
         window_select.launches = 0
         try:
             half = args.serve_q // 2
@@ -1371,10 +1471,7 @@ def serve_phase(args, dev, card, sync) -> int:
             "n": ln, "bulk_load_s": load_s, "warmup_s": warmup_s,
             "requests": args.serve_q, "window": SERVE_WINDOW,
             "requests_per_s": args.serve_q / (b1["wall_s"] + b2["wall_s"]),
-            "latency_ms": {"p50": 1e3 * lat[len(lat) // 2],
-                           "p99": 1e3 * lat[min(len(lat) - 1,
-                                                int(0.99 * len(lat)))],
-                           "max": 1e3 * lat[-1]},
+            "latency_ms": latency_ms(lat),
             "first_half": {k: b1[k] for k in half_keys},
             "traced_after_first_half": t1,
             "churn_pending_after_join": pending,
@@ -1394,7 +1491,7 @@ def serve_phase(args, dev, card, sync) -> int:
         wave_np = rng.integers(0, 2**32, size=(4096, 5), dtype=np.uint32)
         wave = [InfoHash(r.tobytes()) for r in IK.ids_to_bytes(wave_np)]
         dht.find_closest_nodes_batched(wave, AF)          # warm
-        take_lookups()
+        lookups.take()
         window_select.launches = 0
         sync()
         t0 = time.perf_counter()
@@ -1402,7 +1499,7 @@ def serve_phase(args, dev, card, sync) -> int:
         sync()
         batched_s = time.perf_counter() - t0
         batched_launches = window_select.launches
-        blks = take_lookups()
+        blks = lookups.take()
         live = table._ids[table.reachable_mask(0.0)]
         want = exact_topk_np(live, wave_np, 8)
         for i in range(len(wave)):
@@ -1416,7 +1513,7 @@ def serve_phase(args, dev, card, sync) -> int:
                     "window_select")
         batched = {"q": 4096, "s": batched_s,
                    "lookups_per_s": 4096 / batched_s,
-                   "routes": routes_of(blks),
+                   "routes": LookupRoutes.routes(blks),
                    "stream_span_ms": blks[0]["stream_ms"] if blks else None,
                    "window_select_launches": batched_launches}
 
@@ -1456,10 +1553,6 @@ def serve_phase(args, dev, card, sync) -> int:
                              >= ops / OPS_PER_S else "operations"),
                 "library_ms": None, "max_abs_err": e}
         require(err == 0, "window_select at the serving shapes == plain")
-    finally:
-        for cls, orig in originals.items():
-            cls.lookup_launch = orig
-        plog.removeHandler(errors)
 
     failures = reg.counter("dht_ingest_wave_failures_total").value - failures0
     phase_s = time.perf_counter() - t_phase
@@ -1467,11 +1560,318 @@ def serve_phase(args, dev, card, sync) -> int:
           "config1": cfg1, "live_node": live_out, "batched_resolve": batched,
           "window_select_serving_shapes": shapes,
           "ingest_wave_failures": failures,
-          "error_records": len(errors.records), "phase_s": phase_s})
+          "error_records": len(records.errors), "phase_s": phase_s})
     require(failures == 0, "no ingest wave failed")
-    require(not errors.records, "no ERROR record from the port's loggers: "
-            + "; ".join(errors.records[:3]))
+    require(not records.errors, "no ERROR record from the port's loggers: "
+            + "; ".join(records.errors[:3]))
     return c2["launches"] + live_launches + batched_launches, err
+
+
+def _pump_stats(pumps) -> dict:
+    """The DHT thread's pumps that found packets queued: their count,
+    host ms (p50, max) and packets per pump (mean, max)."""
+    busy = [(d, n) for d, n in pumps if n]
+    if not busy:
+        return {"pumps": len(pumps), "with_packets": 0}
+    ms = sorted(1e3 * d for d, _ in busy)
+    return {"pumps": len(pumps), "with_packets": len(busy),
+            "ms_p50": ms[len(ms) // 2], "ms_max": ms[-1],
+            "packets_mean": sum(n for _, n in busy) / len(busy),
+            "packets_max": max(n for _, n in busy)}
+
+
+def runner_phase(args, dev, card, sync) -> int:
+    """The runner layer (see the module docstring, phase 12) on the
+    serve phase's live node and burst.  Returns the window_select
+    launches of its requests."""
+    import concurrent.futures
+    import ipaddress
+    import socket
+    import threading
+    from opendht_tpu_torch import telemetry
+    from opendht_tpu_torch.core import table as CT
+    from opendht_tpu_torch.core.value import Value
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.ops import ids as IK
+    from opendht_tpu_torch.ops.window_select import window_select
+    from opendht_tpu_torch.runtime import Config, DhtRunner, RunnerConfig
+    from opendht_tpu_torch.sockaddr import SockAddr
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    device = None if cuda else "cpu"
+    AF = socket.AF_INET
+    reg = telemetry.get_registry()
+    failures0 = reg.counter("dht_ingest_wave_failures_total").value
+    sent = {"loopback": 0, "off_loopback": []}
+
+    def watch_sends(r):
+        """Count every datagram the runner's native engine sends."""
+        udp = r._udp
+        orig = udp.send
+
+        def send(data, addr, _orig=orig):
+            if ipaddress.ip_address(addr[0]).is_loopback:
+                sent["loopback"] += 1
+            else:
+                sent["off_loopback"].append(addr)
+            return _orig(data, addr)
+        udp.send = send
+
+    runners = []
+    csock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    with PortRecords() as records, LookupRoutes(cuda, sync) as lookups:
+        try:
+            # ---- the node: a runner on the card, its native engine ----
+            node = DhtRunner()
+            runners.append(node)
+            t0 = time.perf_counter()
+            node.run(0, RunnerConfig(
+                dht_config=Config(max_req_per_sec=1_000_000)), device=device)
+            run_s = time.perf_counter() - t0
+            require(node._udp is not None, "the runner's native engine "
+                    "carries the traffic (not the Python-socket fallback)")
+            watch_sends(node)
+
+            def on_dht(fn, timeout: float = 120):
+                """fn(dht) run on the DHT thread as a posted op; its
+                result, or its exception raised here."""
+                fut = concurrent.futures.Future()
+
+                def op(dht):
+                    try:
+                        fut.set_result(fn(dht))
+                    except Exception as e:       # raised below
+                        fut.set_exception(e)
+                node._post(op, prio=True)
+                return fut.result(timeout)
+
+            # ---- the table, loaded on the DHT thread -------------------
+            ln, q = args.serve_n, args.serve_q
+            _, ids, targets_np = live_node_data(args)
+
+            def load(dht):
+                table = dht.tables[AF]
+                s = time.perf_counter()
+                # the loaded peers exist only in the table: the node's
+                # own maintenance sends to their loopback address
+                table.bulk_load(ids, dht.scheduler.time(),
+                                addrs=SockAddr("127.0.0.2", 4567))
+                load_s = time.perf_counter() - s
+                s = time.perf_counter()
+                dht.warmup()
+                sync()
+                return {"rows": len(table), "bulk_load_s": load_s,
+                        "warmup_s": time.perf_counter() - s,
+                        "thread": threading.current_thread().name}
+            load_out = on_dht(load, 600)
+            require(load_out["rows"] == ln and ln > CT.HOST_SCAN_MAX_ROWS,
+                    f"{ln} rows loaded past the host scan")
+            require(load_out["thread"] == "dht", "the table loaded on the "
+                    "DHT thread")
+
+            def reachable(dht):
+                t = dht.tables[AF]
+                return t._ids[t.reachable_mask(0.0)].copy()
+
+            # per packet: the host time of the node's Dht.periodic
+            steps = []
+            inner = node._dht._dht
+            inner_periodic = inner.periodic
+
+            def timed_periodic(data, addr):
+                s = time.perf_counter()
+                out = inner_periodic(data, addr)
+                if data:
+                    steps.append(time.perf_counter() - s)
+                return out
+            inner.periodic = timed_periodic
+            # per pump of the DHT thread (ops, every queued packet,
+            # status): its host time and the packets it found queued
+            pumps = []
+            node_loop = node._loop
+
+            def timed_loop():
+                n = len(node._rcv)
+                s = time.perf_counter()
+                out = node_loop()
+                pumps.append((time.perf_counter() - s, n))
+                return out
+            node._loop = timed_loop
+
+            # ---- the client's requests, in three runs ------------------
+            csock.bind(("127.0.0.1", 0))
+            csock.setblocking(False)
+            ceng, peer = client_engine(
+                csock, "runner-client", InfoHash(bytes(node.get_node_id())),
+                node.get_bound_port())
+
+            def burst(tg_np, what: str) -> dict:
+                """A request to each target of ``tg_np``, every answer
+                exact; its requests/s, latency, the node's steps and
+                pumps, the lookups per route and window_select's
+                launches."""
+                tg = [InfoHash(r.tobytes()) for r in IK.ids_to_bytes(tg_np)]
+                n = len(tg)
+                lookups.take()
+                steps.clear()
+                pumps.clear()
+                window_select.launches = 0
+                b = client_burst(ceng, peer, csock, tg, 0, n, 300)
+                launched = window_select.launches
+                pkt = sorted(steps)
+                require(len(b["answers"]) == n,
+                        f"runner {what}: {len(b['answers'])}/{n} answered "
+                        f"in {b['wall_s']:.1f} s, {len(b['expired'])} "
+                        f"expired at the client; errors: "
+                        f"{records.errors[:2]}; delay drops: "
+                        f"{len(records.delay_drops)}")
+                routes = LookupRoutes.routes(lookups.take())
+                # every answer against the rows reachable now, read on
+                # the DHT thread
+                require_exact([b["answers"][i] for i in range(n)],
+                              on_dht(reachable), tg_np, f"runner {what}")
+                return {
+                    "requests": n, "exact": n, "wall_s": b["wall_s"],
+                    "requests_per_s": n / b["wall_s"],
+                    "latency_ms": latency_ms(b["lat"]),
+                    "node_packet_step_ms": ({"p50": 1e3 * pkt[len(pkt) // 2],
+                                             "max": 1e3 * pkt[-1],
+                                             "packets": len(pkt)}
+                                            if pkt else None),
+                    "dht_thread_pumps": _pump_stats(pumps),
+                    "routes": routes, "window_select_launches": launched}
+
+            # the burst: every request through the snapshot
+            burst_out = {"window": SERVE_WINDOW,
+                         **burst(targets_np, "burst")}
+            launches = burst_out["window_select_launches"]
+            require(burst_out["routes"]["snapshot"] >= q,
+                    f"the snapshot served the burst: {burst_out['routes']}")
+            if cuda:
+                require(launches >= q, f"window_select launched {launches} "
+                        f"times on the runner's path for {q} requests")
+            print(json.dumps({"runner_burst": burst_out}), file=sys.stderr,
+                  flush=True)
+
+            # a peer joins a near-empty bucket, on the DHT thread: churn
+            # pending, so the next q/2 requests take the churn view
+            def join(dht):
+                dht.insert_node(InfoHash(_near_id(bytes(dht.myid), 30,
+                                                  b"runner-join")),
+                                SockAddr("127.0.0.3", 4567))
+                return dht.tables[AF].churn_pending
+            pending = on_dht(join)
+            require(pending >= 1, "the joined peer is pending churn")
+            churn_out = {"churn_pending_after_join": pending,
+                         **burst(np.random.default_rng(15).integers(
+                             0, 2**32, size=(q // 2, 5), dtype=np.uint32),
+                             "churn")}
+            launches += churn_out["window_select_launches"]
+            require(churn_out["routes"]["churn"] >= q // 2,
+                    f"the churn view served: {churn_out['routes']}")
+            print(json.dumps({"runner_churn": churn_out}), file=sys.stderr,
+                  flush=True)
+
+            # a background compaction started on the DHT thread: its side
+            # stream sorts while the churn view serves, and the node's
+            # view() installs it there
+            def compact(dht):
+                t = dht.tables[AF]
+                c = t.compactions
+                t._start_compaction()
+                return {"compactions": c,
+                        "started": t._pending_base is not None}
+            before = on_dht(compact)
+            require(before["started"], "a compaction started")
+            compaction_out = burst(np.random.default_rng(14).integers(
+                0, 2**32, size=(2 * SERVE_WINDOW, 5), dtype=np.uint32),
+                "across the compaction")
+            launches += compaction_out["window_select_launches"]
+            after = on_dht(lambda dht: {
+                "compactions": dht.tables[AF].compactions,
+                "installed": dht.tables[AF]._pending_base is None})
+            require(after["installed"]
+                    and after["compactions"] == before["compactions"] + 1,
+                    f"the DHT thread installed the compaction: {after}")
+            compaction_out["compactions"] = after["compactions"]
+            node._loop = node_loop
+            inner.periodic = inner_periodic
+
+            # ---- a small cluster: three more runners on the card -------
+            small = []
+            for _ in range(3):
+                r = DhtRunner()
+                runners.append(r)
+                small.append(r)
+                r.run(0, device=device)
+                require(r._udp is not None, "a small runner's native engine")
+                watch_sends(r)
+            for r in small[1:]:
+                r.bootstrap("127.0.0.1", small[0].get_bound_port())
+            t0 = time.perf_counter()
+            end = time.monotonic() + 60
+            while time.monotonic() < end and not all(
+                    r.get_status().name == "CONNECTED" for r in small):
+                time.sleep(0.05)
+            connect_s = time.perf_counter() - t0
+            require(all(r.get_status().name == "CONNECTED" for r in small),
+                    "the three runners connected")
+            heard = []
+            lkey = InfoHash.get("runner-phase-listen")
+            tok = small[2].listen(lkey, lambda vals, exp: heard.extend(
+                v.data for v in vals if not exp) or True)
+            require(tok.result(30) >= 1, "listen registered")
+            t0 = time.perf_counter()
+            for i in range(RUNNER_VALUES):
+                require(small[i % 3].put_sync(
+                    InfoHash.get(f"runner-value-{i}"), Value(b"value %d" % i),
+                    timeout=30), f"put_sync {i}")
+            put_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for i in range(RUNNER_VALUES):
+                got = small[(i + 1) % 3].get_sync(
+                    InfoHash.get(f"runner-value-{i}"), timeout=30)
+                require([v.data for v in got] == [b"value %d" % i],
+                        f"get_sync {i} found the value put on another "
+                        "runner")
+            get_s = time.perf_counter() - t0
+            small[0].put(lkey, Value(b"heard"))
+            end = time.monotonic() + 30
+            while time.monotonic() < end and b"heard" not in heard:
+                time.sleep(0.05)
+            require(heard == [b"heard"], "the listener heard the remote put")
+            cluster_out = {"runners": 3, "connect_s": connect_s,
+                           "values": RUNNER_VALUES, "put_sync_s": put_s,
+                           "get_sync_s": get_s, "listen": "heard"}
+        finally:
+            csock.close()
+            for r in runners:
+                r.join()
+
+    alive = [t.name for t in threading.enumerate() if t.name.startswith("dht")]
+    failures = reg.counter("dht_ingest_wave_failures_total").value - failures0
+    crypto_mods = sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("cryptography", "argon2"))
+    emit({"phase": "runner", **card, "native_engine": True,
+          "run_s": run_s, "load": load_out, "burst": burst_out,
+          "churn": churn_out, "across_compaction": compaction_out,
+          "cluster": cluster_out, "ingest_wave_failures": failures,
+          "error_records": len(records.errors),
+          "delay_drops": len(records.delay_drops),
+          "datagrams_sent": {"loopback": sent["loopback"],
+                             "off_loopback": len(sent["off_loopback"])},
+          "crypto_modules": crypto_mods, "live_runner_threads": alive,
+          "phase_s": time.perf_counter() - t_phase})
+    require(failures == 0, "no ingest wave failed")
+    require(not records.errors, "no ERROR record from the port's loggers: "
+            + "; ".join(records.errors[:3]))
+    require(not records.delay_drops, "no packet dropped for its delay")
+    require(not sent["off_loopback"], "every datagram stayed on loopback: "
+            f"{sent['off_loopback'][:3]}")
+    require(not crypto_mods, f"no crypto wheel imported: {crypto_mods}")
+    require(not alive, f"every runner thread joined: {alive}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1494,16 +1894,17 @@ def main(argv=None) -> int:
     ap.add_argument("--churn-table-n", type=int, default=1_000_000,
                     help="ids of the churn phase's NodeTable check")
     ap.add_argument("--serve-n", type=int, default=1_000_000,
-                    help="rows of the serve phase's live node")
+                    help="rows of the live node (serve and runner phases)")
     ap.add_argument("--serve-q", type=int, default=512,
-                    help="requests of the live node's burst")
+                    help="requests of the live node's burst (serve and "
+                         "runner phases)")
     ap.add_argument("--serve-gets", type=int, default=1000,
                     help="Dht.get calls of the serve phase's config 1")
     ap.add_argument("--phases", default="all",
-                    choices=("all", "churn", "serve"),
-                    help="'all', or 'churn' / 'serve' to run the device, "
-                         "build, parity and main phases and then only "
-                         "that phase")
+                    choices=("all", "churn", "serve", "runner"),
+                    help="'all', or 'churn' / 'serve' / 'runner' to run "
+                         "the device, build, parity and main phases and "
+                         "then only that phase")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on the host with the plain versions "
@@ -1809,6 +2210,9 @@ def main(argv=None) -> int:
         serve_launches, serve_err = serve_phase(args, dev, card, sync)
         launches["window_select"] += serve_launches
         err["window_select"] = max(err["window_select"], serve_err)
+    if args.phases in ("all", "runner"):
+        # the runner's path: its window_select launches join too
+        launches["window_select"] += runner_phase(args, dev, card, sync)
 
     kernels = []
     for name, src_line in (("window_select",

@@ -5,12 +5,15 @@ device arrays and its churn view as numpy; a caller hands those over as
 numpy (``tbl._ids``, ``np.asarray(snap.sorted_ids)``, ``view.tomb_np``
 …) and gets the port's objects with the same contents.
 :func:`dht_from_jax` carries a whole serving node: its tables and its
-value store.  Nothing here imports the JAX package: the JAX objects are
-read through their attributes.
+value store; :func:`secure_dht_from_jax` a node with its crypto overlay,
+and :func:`identity_from_jax` a key and certificate (through DER).
+Nothing here imports the JAX package: the JAX objects are read through
+their attributes and methods.
 """
 
 from __future__ import annotations
 
+import base64
 import socket
 
 import numpy as np
@@ -22,6 +25,10 @@ from .core.table import DELTA_CAP, TARGET_NODES, ChurnView, NodeTable, \
 from .infohash import InfoHash
 from .ops import ids as IK
 from .sockaddr import SockAddr
+from .utils import lazy_module
+
+# the crypto layer imports ``cryptography`` / ``argon2``: loaded at first use
+crypto = lazy_module("opendht_tpu_torch.crypto")
 
 SLAB_COLUMNS = ("ids", "valid", "expired", "time_reply", "time_seen",
                 "auth_err", "bucket")
@@ -141,4 +148,43 @@ def dht_from_jax(src, send_fn, scheduler=None, *, device=None):
             dst.storage_store(InfoHash(bytes(key)),
                               Value.from_packed(vs.data.get_packed()),
                               vs.created)
+    return dst
+
+
+def _pem_body(pem: bytes) -> bytes:
+    """The DER inside a PEM block."""
+    return base64.b64decode(b"".join(
+        line for line in pem.split(b"\n")
+        if line and not line.startswith(b"-----")))
+
+
+def identity_from_jax(src):
+    """The port's ``crypto.Identity`` for a JAX ``crypto.Identity`` (or
+    ``(key, cert)`` pair; either half may be None): the private key as
+    PKCS#8 DER and the certificate chain as concatenated DER, loaded by
+    the port's own crypto layer."""
+    key, cert = src if src else (None, None)
+    return crypto.Identity(
+        crypto.PrivateKey(_pem_body(key.serialize())) if key else None,
+        crypto.Certificate(cert.pack()) if cert else None)
+
+
+def secure_dht_from_jax(src, send_fn, scheduler=None, *, device=None):
+    """A port ``SecureDht`` carrying a JAX ``SecureDht``: the inner node
+    through :func:`dht_from_jax`, the identity through
+    :func:`identity_from_jax`, the certificates and public keys it has
+    cached for other nodes, and ``forward_all``.  Like the original, the
+    new overlay announces its own certificate (a permanent put) when it
+    has one."""
+    from .runtime.secure_dht import SecureDht
+    dht = dht_from_jax(src._dht, send_fn, scheduler, device=device)
+    ident = identity_from_jax((src.key, src.certificate))
+    dst = SecureDht(dht, ident if (ident.first or ident.second) else None)
+    for nid, cert in src.node_certificates.items():
+        dst.node_certificates[InfoHash(bytes(nid))] = \
+            crypto.Certificate(cert.pack())
+    for nid, pk in src.node_pubkeys.items():
+        dst.node_pubkeys[InfoHash(bytes(nid))] = \
+            crypto.PublicKey(pk.export_der())
+    dst.forward_all = src.forward_all
     return dst

@@ -1,8 +1,8 @@
 """L4 — the node runtime: the full DHT node core (``Dht``), its live
-search machinery and the ingest wave builder.
+search machinery, the ingest wave builder, the secure layer
+(``SecureDht``) and the threaded runner (``DhtRunner``).
 
-The port of the JAX package's ``runtime`` package, less the runner and
-the secure layer (not ported yet).  Per-packet protocol state — the
+The port of the JAX package's ``runtime`` package.  Per-packet protocol state — the
 msgpack RPC engine, request retries, per-search token/listen/announce
 bookkeeping — stays host-side; every closest-node query goes through
 the port's :class:`~opendht_tpu_torch.core.table.NodeTable` (an exact
@@ -16,3 +16,5 @@ src/node_cache.cpp:41-74)."""
 from .config import Config, NodeStatus, NodeStats, DEFAULT_STORAGE_LIMIT  # noqa: F401
 from .dht import BatchedResolve, Dht  # noqa: F401
 from .wave_builder import WaveBuilder  # noqa: F401
+from .secure_dht import SecureDht  # noqa: F401
+from .runner import DhtRunner, RunnerConfig  # noqa: F401

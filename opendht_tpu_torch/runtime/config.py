@@ -3,12 +3,12 @@ include/opendht/callbacks.h:41-117).
 
 A copy of the JAX package's ``runtime/config.py`` cut to the planes the
 port carries.  ``Config`` keeps the node, ingest, resolve-shard,
-waterfall, pipeline-observatory and peer-ledger fields, with the JAX
-defaults.  It leaves out ``health``, ``history``, ``keyspace``,
-``cache``, ``chaos_enabled``, ``reshard``, ``listen_batching`` and
-``listeners``: the planes behind them (and the runner, crypto and
-``SecureDhtConfig``) are not ported yet, and the slice that ports one
-adds its field back with the JAX default.  Passing a left-out field
+health, history, waterfall, pipeline-observatory and peer-ledger
+fields, with the JAX defaults, and ``SecureDhtConfig`` is as in JAX.
+It leaves out ``keyspace``, ``cache``, ``chaos_enabled``, ``reshard``,
+``listen_batching`` and ``listeners``: the planes behind them are not
+ported yet, and the slice that ports one adds its field back with the
+JAX default.  Passing a left-out field
 raises TypeError, as for any dataclass.  The port's node serves as the
 JAX node does with those planes off (``keyspace.enabled=False``,
 ``cache.enabled=False``, ``reshard.enabled=False``,
@@ -22,6 +22,11 @@ import enum
 from dataclasses import dataclass, field
 from typing import Optional
 
+# the declarative SLO/health config lives in health.py and is
+# re-exported here because runtime/config.py is where node behavior is
+# configured — `Config.health` is the knob surface
+from ..health import HealthConfig, SloObjective, default_slos  # noqa: F401
+from ..history import HistoryConfig  # noqa: F401  (knob surface)
 from ..waterfall import WaterfallConfig  # noqa: F401  (knob surface)
 from ..pipeline_observatory import PipelineObservatoryConfig  # noqa: F401
 from ..peers import PeersConfig  # noqa: F401  (knob surface)
@@ -109,6 +114,31 @@ class Config:
     #: for >= 2 instead of serving unsharded behind a warning.
     resolve_mesh_t: int = 0
 
+    # --- health observatory (health.py) ------------------------------
+    #: declarative SLO engine + per-node health verdict: per-op
+    #: availability/latency objectives with multi-window burn-rate
+    #: evaluation, derived signals (ingest queue saturation, scheduler
+    #: tick lag, request timeout ratio, stale buckets, connectivity),
+    #: evaluated every ``health.period`` seconds on the node scheduler
+    #: and exported as `dht_health_*`/`dht_slo_*` gauges, flight
+    #: events and ``DhtRunner.get_health()``.
+    #: ``health.period = 0`` disables the tick entirely.
+    health: HealthConfig = field(default_factory=HealthConfig)
+
+    # --- flight data recorder (history.py) ---------------------------
+    #: bounded ring of periodic delta-encoded registry frames (counters
+    #: as deltas, histograms as bucket deltas, gauges as last-value)
+    #: ticking on the node scheduler, with windowed ``rate``/
+    #: ``quantile`` queries, optional bounded on-disk spill
+    #: (``history.spill_dir``), and post-mortem black-box bundles —
+    #: auto-captured on every health transition to unhealthy, served
+    #: fresh by ``DhtRunner.dump_bundle()``.  When the recorder is
+    #: live, the health engine's windowed SLO deltas read THROUGH its
+    #: frames (one delta codepath).  ``history.period = 0`` disables
+    #: the recorder (surfaces report ``enabled: false``; the health
+    #: engine falls back to its private windows).
+    history: HistoryConfig = field(default_factory=HistoryConfig)
+
     # --- per-op latency waterfall (waterfall.py) -------------------
     #: always-on stage profiler over the full serving path:
     #: ``dht_stage_seconds{stage=}`` histograms (queue_wait /
@@ -158,3 +188,10 @@ class Config:
     #: builds (the ledger only observes; wire bytes are pinned
     #: bit-identical either way in benchmarks/exp_peers_r23.py).
     peers: PeersConfig = field(default_factory=PeersConfig)
+
+
+@dataclass
+class SecureDhtConfig:
+    """(callbacks.h:111-115); identity = (PrivateKey, Certificate)."""
+    node_config: Config = field(default_factory=Config)
+    identity: Optional[tuple] = None

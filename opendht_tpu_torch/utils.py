@@ -3,9 +3,9 @@
 A copy of the JAX package's ``utils.py`` with its behaviour unchanged,
 except that the msgpack helpers go through the port's own pure-Python
 codec (:mod:`opendht_tpu_torch._msgpack`, byte-identical to
-``msgpack.packb(use_bin_type=True)``) instead of the ``msgpack`` wheel,
-and ``lazy_module`` (used only by the crypto layer, not ported yet) is
-left out.
+``msgpack.packb(use_bin_type=True)``) instead of the ``msgpack`` wheel.
+The crypto layer's call sites name the port's own module,
+``lazy_module("opendht_tpu_torch.crypto")``, never the JAX package's.
 
 Counterpart of the reference's ``include/opendht/utils.h`` (steady
 clock/time_point/duration utils.h:77-114, packMsg/unpackMsg :121-137,
@@ -47,6 +47,33 @@ def uniform_duration(low: float, high: float, rng: random.Random | None = None) 
     (utils.h:93-107 uniform_duration_distribution)."""
     r = rng.uniform(low, high) if rng is not None else random.uniform(low, high)
     return r
+
+
+def lazy_module(name: str):
+    """Import-on-first-attribute-touch module proxy.
+
+    The crypto layer needs the ``cryptography`` wheel at IMPORT time
+    (x509/serialization bindings), but the runner/SecureDht stack only
+    touches it at CALL time — and only when an identity or certificate
+    is actually in play.  Binding ``crypto = lazy_module(...)`` lets
+    the whole runtime import and run identity-less in minimal
+    containers; the ImportError surfaces on first real use instead.
+    """
+    import importlib
+
+    class _Lazy:
+        def __getattr__(self, attr):
+            # memoize on the proxy: __getattr__ only fires on misses,
+            # so each attribute pays the importlib lookup exactly once
+            # (the proxy sits on SecureDht's per-value hot paths)
+            val = getattr(importlib.import_module(name), attr)
+            setattr(self, attr, val)
+            return val
+
+        def __repr__(self):
+            return f"<lazy module {name!r}>"
+
+    return _Lazy()
 
 
 class DhtException(Exception):

@@ -692,13 +692,23 @@ def test_resolve_mesh_t_2_raises():
 
 
 @pytest.mark.parametrize("field", ["keyspace", "cache", "reshard",
-                                   "listeners", "listen_batching", "health",
-                                   "history", "chaos_enabled"])
+                                   "listeners", "listen_batching",
+                                   "chaos_enabled"])
 def test_left_out_config_fields_raise(field):
     from opendht_tpu.runtime import Config as JConfig
     assert field in JConfig.__dataclass_fields__
     with pytest.raises(TypeError):
         Config(**{field: getattr(JConfig(), field)})
+
+
+@pytest.mark.parametrize("field", ["health", "history"])
+def test_runner_config_fields_take_the_jax_defaults(field):
+    """``health`` and ``history`` came back with the runner layer, at
+    the JAX defaults."""
+    import dataclasses
+    from opendht_tpu.runtime import Config as JConfig
+    assert dataclasses.asdict(getattr(Config(), field)) == \
+        dataclasses.asdict(getattr(JConfig(), field))
 
 
 def test_dht_defaults_to_the_card(monkeypatch):

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of ``opendht_tpu_torch``
 pulls in neither JAX, ``opendht_tpu`` nor the ``msgpack`` wheel (the port
-carries its own codec), its entry points called with
+carries its own codec), and every module but ``crypto`` leaves out
+``cryptography`` and ``argon2``; a signed put through the port's
+``SecureDht`` loads no JAX module; its entry points called with
 ``device=None`` on a machine without a card raise instead of running on
 the CPU, and ``chip_smoke.py`` fails without a card and rehearses every
 phase on the CPU without claiming a chip run."""
@@ -55,6 +57,72 @@ def test_importing_the_port_loads_no_jax():
         assert f"opendht_tpu_torch.{mod}" in want
 
 
+_NO_CRYPTO_PROBE = """
+import importlib, json, pkgutil, sys
+import opendht_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(opendht_tpu_torch.__path__,
+                                               "opendht_tpu_torch.")
+         if m.name != "opendht_tpu_torch.crypto"]
+for n in names:
+    importlib.import_module(n)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("cryptography", "argon2"))))
+"""
+
+
+def test_only_crypto_imports_the_crypto_wheels():
+    out = subprocess.run([sys.executable, "-c", _NO_CRYPTO_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    for path in (REPO / "opendht_tpu_torch").rglob("*.py"):
+        if path.name == "crypto.py":
+            continue
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not s.startswith(("import cryptography",
+                                     "from cryptography",
+                                     "import argon2", "from argon2")), path
+
+
+_SIGNED_PUT_PROBE = """
+import json, sys
+from opendht_tpu_torch import crypto
+from opendht_tpu_torch.core.value import Value
+from opendht_tpu_torch.infohash import InfoHash
+from opendht_tpu_torch.runtime import Config, Dht, SecureDht
+from opendht_tpu_torch.runtime.secure_dht import secure_node_id
+from opendht_tpu_torch.scheduler import Scheduler
+clock = [0.0]
+ident = crypto.generate_identity("probe", key_length=1024)
+dht = Dht(lambda d, a: 0, Config(node_id=secure_node_id(ident.second)),
+          Scheduler(clock=lambda: clock[0]), has_v6=False, device="cpu")
+sd = SecureDht(dht, ident)
+v = Value(b"signed in the port")
+done = []
+sd.put_signed(InfoHash.get("probe-key"), v, lambda ok, ns: done.append(ok))
+while not done and clock[0] < 120:
+    clock[0] += 0.5
+    dht.periodic(None, None)
+print(json.dumps({"signed": v.is_signed() and v.check_signature(),
+                  "done": len(done),
+                  "crypto": "cryptography" in sys.modules,
+                  "bad": sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "jaxlib",
+                                                       "opendht_tpu"))}))
+"""
+
+
+def test_a_signed_put_loads_no_jax_module():
+    """The secure layer reaches the port's own crypto module, never the
+    JAX package's (``lazy_module("opendht_tpu_torch.crypto")``)."""
+    out = subprocess.run([sys.executable, "-c", _SIGNED_PUT_PROBE],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=180, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"signed": True, "done": 1, "crypto": True, "bad": []}
+
+
 def test_port_sources_name_no_jax_import():
     for path in (REPO / "opendht_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
@@ -95,6 +163,7 @@ def _entry_points():
         "NodeTable.network_size_estimate": lambda: NodeTable(
             InfoHash.get("me")).network_size_estimate(),
         "Dht": lambda: opendht_tpu_torch.Dht(lambda data, addr: 0),
+        "DhtRunner.run": lambda: opendht_tpu_torch.DhtRunner().run(0),
     }
 
 
@@ -149,7 +218,7 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
     phases = [l.get("phase") for l in lines]
     assert phases[:-1] == ["device", "main", "parity", "timing", "profile",
                            "memory", "search", "maintenance", "churn",
-                           "serve"]
+                           "serve", "runner"]
     search = lines[phases.index("search")]
     assert search["lookups"] == 2 * 256
     assert search["checks"]["goldens"] == ["lut_l5", "lut_l2", "exact_l5"]
@@ -166,6 +235,20 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
     assert serve["batched_resolve"]["routes"] == {"snapshot": 1, "churn": 0}
     assert serve["ingest_wave_failures"] == 0
     assert serve["error_records"] == 0
+    runner = lines[phases.index("runner")]
+    assert runner["native_engine"] and runner["load"]["rows"] == 8192
+    assert runner["load"]["thread"] == "dht"
+    assert runner["burst"]["exact"] == 16
+    assert runner["burst"]["routes"]["snapshot"] >= 16
+    assert runner["churn"]["exact"] == 8
+    assert runner["churn"]["routes"]["churn"] >= 8
+    assert runner["across_compaction"]["exact"] == 8
+    assert runner["cluster"]["values"] == 64
+    assert runner["cluster"]["listen"] == "heard"
+    assert (runner["error_records"], runner["delay_drops"],
+            runner["ingest_wave_failures"]) == (0, 0, 0)
+    assert runner["datagrams_sent"]["off_loopback"] == 0
+    assert runner["crypto_modules"] == runner["live_runner_threads"] == []
     kernels = lines[-1]["kernels"]
     assert [k["name"] for k in kernels] == ["window_select",
                                             "lex_topk_select"]
