@@ -144,13 +144,46 @@ Phases, one JSON line each:
              ``cryptography`` / ``argon2`` in sys.modules, or runner
              thread left alive after every runner is joined.
              (--serve-n / --serve-q size it with the serve phase.)
+13. planes — the node's planes (keyspace sketch, hot-value cache,
+             listener table) on the card; the serve and runner phases
+             run them too, since they are the port's defaults.  First
+             the planes' device programs alone (plain torch, not TPU
+             kernels): listener_match at S=64 and L = 1,024, 100,000 and
+             1,000,000 rows (each held to match_host over 4,096-row
+             chunks; its peak extra memory), cache_probe at Q=64 C=64
+             and sketch_update / sketch_query at Q=64 and sketch_decay
+             (each held to its numpy mirror): CUDA-event medians,
+             launches and copies per call (torch.profiler), bounds.
+             Then the live node's 1,000,000 ids (live_node_data) at the
+             JAX defaults but the keyspace's hot share (PLANES_HOT_SHARE;
+             and max_req_per_sec, as in the serve phase) on a virtual
+             clock: a client engine puts one value on each of 10,000
+             keys over loopback (keys near the node's id, so its
+             announce's too-far check stores them), PLANES_WINDOW
+             unanswered at a time; 20 virtual s later 4,096 Dht.get over
+             those keys drawn from a seeded Zipf(0.99) (YCSB workload
+             C), one per virtual ms, then the scheduler pumped through
+             three observatory ticks (2 s).  Checks: cache hits > 0;
+             every get's values equal the same stream on the same node
+             with the cache disabled; the sketch and histogram equal a
+             numpy count-min (hash_columns_host, float32 decays) of
+             every id the observatory was handed, cell for cell;
+             window_select launched on the misses.  Per-wave cost of 4
+             waves of 64 misses, planes on / off / off / on on the same
+             node (torch.profiler: device ms, kernels, copies).  Then
+             1,024 listened keys (the table's capacity) plus 64 that
+             overflow, and 8 waves of 64 stored puts, half on them: every
+             notification delivered once, per listener in the order of a
+             listen_batching="off" run, listener_match launched.  Fails
+             on any ERROR record, ingest wave failure or plane gone dark.
+             (--planes-keys / --planes-gets size it, --serve-n the node.)
 
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failure raises (nonzero exit, no ok line).  Without a card it exits
 nonzero before any result; ``--cpu`` rehearses every phase on the host
 with the plain versions and also ends without the ok line, as does a
-partial run (``--phases churn``, ``--phases serve`` or ``--phases
-runner``: phases 1-7, then only that phase).
+partial run (``--phases churn``, ``--phases serve``, ``--phases
+runner`` or ``--phases planes``: phases 1-7, then only that phase).
 """
 
 from __future__ import annotations
@@ -971,16 +1004,26 @@ def _near_id(me: bytes, bits: int, salt: bytes) -> bytes:
     return bytes(raw)
 
 
+#: what a plane logs when it goes dark (its device failed): the keyspace
+#: observatory, the hot-value cache and the listener table disable
+#: themselves instead of failing the node
+DARK_MARKS = ("observatory disabled", "cache disabled",
+              "batched delivery disabled", "going dark", "; disabling")
+
+
 class PortRecords(logging.Handler):
-    """While open: the ERROR records of the port's loggers, and the
-    runner's warnings that it dropped a packet for its delay."""
+    """While open: the ERROR records of the port's loggers, the runner's
+    warnings that it dropped a packet for its delay, and any record of
+    a plane going dark."""
 
     def __init__(self):
         super().__init__(logging.WARNING)
-        self.errors, self.delay_drops = [], []
+        self.errors, self.delay_drops, self.dark = [], [], []
 
     def emit(self, record):
         msg = self.format(record)
+        if any(m in msg for m in DARK_MARKS):
+            self.dark.append(msg)
         if record.levelno >= logging.ERROR:
             self.errors.append(msg)
         elif "dropping packet with high delay" in msg:
@@ -1560,8 +1603,11 @@ def serve_phase(args, dev, card, sync) -> int:
           "config1": cfg1, "live_node": live_out, "batched_resolve": batched,
           "window_select_serving_shapes": shapes,
           "ingest_wave_failures": failures,
-          "error_records": len(records.errors), "phase_s": phase_s})
+          "error_records": len(records.errors),
+          "planes_dark_records": len(records.dark), "phase_s": phase_s})
     require(failures == 0, "no ingest wave failed")
+    require(not records.dark, "no plane went dark: "
+            + "; ".join(records.dark[:3]))
     require(not records.errors, "no ERROR record from the port's loggers: "
             + "; ".join(records.errors[:3]))
     return c2["launches"] + live_launches + batched_launches, err
@@ -1858,6 +1904,7 @@ def runner_phase(args, dev, card, sync) -> int:
           "churn": churn_out, "across_compaction": compaction_out,
           "cluster": cluster_out, "ingest_wave_failures": failures,
           "error_records": len(records.errors),
+          "planes_dark_records": len(records.dark),
           "delay_drops": len(records.delay_drops),
           "datagrams_sent": {"loopback": sent["loopback"],
                              "off_loopback": len(sent["off_loopback"])},
@@ -1867,11 +1914,603 @@ def runner_phase(args, dev, card, sync) -> int:
     require(not records.errors, "no ERROR record from the port's loggers: "
             + "; ".join(records.errors[:3]))
     require(not records.delay_drops, "no packet dropped for its delay")
+    require(not records.dark, "no plane went dark: "
+            + "; ".join(records.dark[:3]))
     require(not sent["off_loopback"], "every datagram stayed on loopback: "
             f"{sent['off_loopback'][:3]}")
     require(not crypto_mods, f"no crypto wheel imported: {crypto_mods}")
     require(not alive, f"every runner thread joined: {alive}")
     return launches
+
+
+# Requests the planes phase's put client keeps unanswered (the node
+# answers one per server step; its retry timer is 1 s).
+PLANES_WINDOW = 16
+# The planes phase's keyspace hot rule: the share of the window's traffic
+# a key needs to turn hot.  The JAX default is 0.125; the hottest key of
+# a Zipf(0.99) stream over 10,000 keys draws 1 / H(10,000, 0.99) ~ 9.8 %
+# of it, so at the default no key of YCSB workload C ever turns hot.
+PLANES_HOT_SHARE = 0.02
+
+
+class Counted:
+    """While open: the calls of ``module.name`` (a plane's device
+    program, as the plane module holds it), counted."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self._orig = orig = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return orig(*a, **kw)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._orig)
+
+
+class SketchEvents:
+    """While open: every update of the keyspace sketch (its ids, as
+    uint32 numpy) and every decay (its factor), in order, from the
+    module the observatory calls them through."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        import torch
+        from opendht_tpu_torch import keyspace
+        from opendht_tpu_torch.ops import ids as IK
+        sk = self.sk = keyspace.sk
+        self._orig = (sk.sketch_update, sk.sketch_decay)
+        upd, dec = self._orig
+
+        def update(sketch, hist, ids):
+            a = (IK.from_keys(ids) if isinstance(ids, torch.Tensor)
+                 else np.asarray(ids, np.uint32))
+            self.events.append(("update", a.reshape(-1, 5).copy()))
+            return upd(sketch, hist, ids)
+
+        def decay(sketch, hist, factor):
+            self.events.append(("decay", factor))
+            return dec(sketch, hist, factor)
+        sk.sketch_update, sk.sketch_decay = update, decay
+        return self
+
+    def __exit__(self, *exc):
+        self.sk.sketch_update, self.sk.sketch_decay = self._orig
+
+    def count_min(self, depth: int, width: int):
+        """The numpy count-min of the recorded events:
+        ``hash_columns_host`` columns, top-byte bins, float32 decays."""
+        from opendht_tpu_torch.ops.sketch import hash_columns_host
+        sk = np.zeros((depth, width), np.int64)
+        hist = np.zeros(256, np.int64)
+        for kind, x in self.events:
+            if kind == "update":
+                cols = hash_columns_host(x, depth, width)
+                for d in range(depth):
+                    np.add.at(sk[d], cols[:, d], 1)
+                np.add.at(hist, x[:, 0] >> 24, 1)
+            else:
+                f = np.float32(x)
+                sk = np.floor(sk.astype(np.float32) * f).astype(np.int64)
+                hist = np.floor(hist.astype(np.float32) * f).astype(np.int64)
+        return sk, hist
+
+
+def _near_keys(me: bytes, n: int, seed: int) -> list:
+    """n distinct seeded keys sharing their first 48 bits with ``me``:
+    the node is closer to each than any row of a random table, so it
+    stores their announces (the announce's too-far check)."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, size=(n, 20), dtype=np.uint8)
+    raw[:, :6] = np.frombuffer(me[:6], np.uint8)
+    keys = sorted({r.tobytes() for r in raw})
+    require(len(keys) == n, "distinct near keys")
+    return [keys[i] for i in rng.permutation(n)]
+
+
+def plane_op_timings(rng, dev, cuda, sync, l_max: int) -> dict:
+    """The planes' device programs alone at their serving shapes: CUDA
+    events (median of 7 after warm-up), launches and copies per call
+    (torch.profiler over 10 calls), the bytes and operations bound, and
+    each result held to its numpy mirror; listener_match's peak extra
+    memory at L = 1,024, 100,000 and 1,000,000 rows (those up to
+    ``l_max``, the live node's rows, and ``l_max`` itself).  Not TPU
+    kernels: plain torch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from opendht_tpu_torch.ops import ids as IK
+    from opendht_tpu_torch.ops import sketch as SK
+    from opendht_tpu_torch.ops.cache_probe import cache_probe, probe_host
+    from opendht_tpu_torch.ops.listener_match import (listener_match,
+                                                       match_host)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                     else [])
+
+    def measure(fn, nbytes: int, ops: int) -> dict:
+        out = {"ms": median_ms(fn, reps=7, inner=10, cuda=cuda)}
+        with profile(activities=acts) as prof:
+            for _ in range(10):
+                fn()
+            sync()
+        tot = device_totals(prof, cuda, 10)
+        out.update({"launches_per_call": tot["kernels"],
+                    "copies_per_call": tot["copies"],
+                    "device_ms_per_call": tot["device_ms"],
+                    "bytes": nbytes, "ops": ops,
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                    ops / OPS_PER_S) * 1e3,
+                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                 >= ops / OPS_PER_S else "operations")})
+        return out
+
+    res = {}
+    S = 64
+    for L in sorted({min(L, l_max) for L in (1024, 100_000, 1_000_000)}):
+        table = rng.integers(0, 2**32, size=(L, 5), dtype=np.uint32)
+        valid = rng.random(L) < 0.9
+        stored = rng.integers(0, 2**32, size=(S, 5), dtype=np.uint32)
+        # half the wave on table rows, within the first 4,096 and past
+        stored[:S // 2] = table[rng.integers(0, L, size=S // 2)]
+        stored[0] = table[L - 1]
+        tk, vk, sk = (IK.to_keys(table, dev), torch.from_numpy(valid).to(dev),
+                      IK.to_keys(stored, dev))
+        hit, slot = listener_match(tk, vk, sk)
+        sync()
+        # match_host over 4,096 rows at a time; the first chunk with a
+        # hit holds the lowest matching row
+        want_hit = np.zeros(S, bool)
+        want_slot = np.full(S, -1, np.int32)
+        for lo in range(0, L, 4096):
+            h, s_ = match_host(table[lo:lo + 4096], valid[lo:lo + 4096],
+                               stored)
+            new = h & ~want_hit
+            want_slot[new] = s_[new] + lo
+            want_hit |= h
+        require(np.array_equal(hit.cpu().numpy(), want_hit)
+                and np.array_equal(slot.cpu().numpy(), want_slot),
+                f"listener_match at L={L} == match_host over 4,096-row "
+                "chunks")
+        peak = "not measured"
+        if cuda:
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            listener_match(tk, vk, sk)
+            sync()
+            peak = torch.cuda.max_memory_allocated() - base
+        res[f"listener_match_S64_L{L}"] = {
+            **measure(lambda: listener_match(tk, vk, sk),
+                      L * 21 + S * 20 + S * 5, 11 * S * L),
+            "hits": int(want_hit.sum()), "peak_extra_bytes": peak}
+        del tk, vk, sk
+    Q = C = 64
+    cid = rng.integers(0, 2**32, size=(C, 5), dtype=np.uint32)
+    cval = rng.random(C) < 0.8
+    tg = rng.integers(0, 2**32, size=(Q, 5), dtype=np.uint32)
+    tg[:16] = cid[:16]
+    ck, cv, tk = (IK.to_keys(cid, dev), torch.from_numpy(cval).to(dev),
+                  IK.to_keys(tg, dev))
+    got = cache_probe(ck, cv, tk)
+    want = probe_host(cid, cval, tg)
+    require(all(np.array_equal(g.cpu().numpy(), w)
+                for g, w in zip(got, want)),
+            "cache_probe at Q=64, C=64 == probe_host")
+    res["cache_probe_Q64_C64"] = measure(lambda: cache_probe(ck, cv, tk),
+                                         C * 21 + Q * 20 + Q * 5,
+                                         11 * Q * C)
+    ids = rng.integers(0, 2**32, size=(Q, 5), dtype=np.uint32)
+    ik = IK.to_keys(ids, dev)
+    s0, h0 = SK.sketch_init(device=dev)
+    SK.sketch_update(s0, h0, ik)
+    cols = SK.hash_columns_host(ids)
+    want_s = np.zeros((4, 2048), np.int64)
+    for d in range(4):
+        np.add.at(want_s[d], cols[:, d], 1)
+    require(np.array_equal(s0.cpu().numpy(), want_s)
+            and np.array_equal(h0.cpu().numpy(),
+                               np.bincount(ids[:, 0] >> 24, minlength=256)),
+            "sketch_update at Q=64 == a numpy count-min")
+    # the mix: ~60 int64 operations per (id, row) and the scatter
+    res["sketch_update_Q64"] = measure(
+        lambda: SK.sketch_update(s0, h0, ik),
+        Q * 20 + 2 * (4 * 2048 + 256) * 4, Q * 4 * 60)
+    res["sketch_query_Q64"] = measure(lambda: SK.sketch_query(s0, ik),
+                                      Q * 20 + 4 * 2048 * 4 + Q * 4,
+                                      Q * 4 * 60)
+    res["sketch_decay"] = measure(lambda: SK.sketch_decay(s0, h0, 0.5),
+                                  2 * 2 * (4 * 2048 + 256) * 4,
+                                  3 * (4 * 2048 + 256))
+    return res
+
+
+def planes_phase(args, dev, card, sync) -> int:
+    """The node's planes (see the module docstring, phase 13).  Returns
+    the window_select launches of its counted runs."""
+    import select
+    import socket
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from opendht_tpu_torch import hotcache as HC
+    from opendht_tpu_torch import listeners as LS
+    from opendht_tpu_torch import telemetry
+    from opendht_tpu_torch.core import table as CT
+    from opendht_tpu_torch.core.value import Query, Value
+    from opendht_tpu_torch.hotcache import HotCacheConfig, HotValueCache
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.keyspace import KeyspaceConfig, KeyspaceObservatory
+    from opendht_tpu_torch.listeners import ListenerTable
+    from opendht_tpu_torch.ops.window_select import window_select
+    from opendht_tpu_torch.runtime import Config, Dht
+    from opendht_tpu_torch.scheduler import Scheduler
+    from opendht_tpu_torch.sockaddr import SockAddr
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    device = None if cuda else "cpu"
+    AF = socket.AF_INET
+    reg = telemetry.get_registry()
+    failures0 = reg.counter("dht_ingest_wave_failures_total").value
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                     else [])
+    out = {}
+    with PortRecords() as records, LookupRoutes(cuda, sync) as lookups:
+        # ---- the planes' device programs alone ------------------------
+        t0 = time.perf_counter()
+        out["ops"] = plane_op_timings(np.random.default_rng(args.seed + 7),
+                                      dev, cuda, sync, args.serve_n)
+        out["ops_s"] = time.perf_counter() - t0
+
+        # ---- the node: the live node's 1M rows at the JAX defaults ----
+        # every sketch update and decay from here on is recorded
+        sketch_ev = SketchEvents().__enter__()
+        _, ids, _ = live_node_data(args)
+        clock = {"t": 0.0}
+        ssock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        ssock.bind(("127.0.0.1", 0))
+        ssock.setblocking(False)
+        csock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        csock.bind(("127.0.0.1", 0))
+        csock.setblocking(False)
+        client = csock.getsockname()
+
+        def server_send(data, dst):
+            # the loaded peers exist only in the table: only the client
+            # is answered
+            if (str(dst.ip), dst.port) == client:
+                ssock.sendto(data, client)
+            return 0
+
+        dht = Dht(server_send, Config(
+            max_req_per_sec=1_000_000,
+            keyspace=KeyspaceConfig(hot_share=PLANES_HOT_SHARE)),
+            Scheduler(clock=lambda: clock["t"]), has_v6=False, device=device)
+        table = dht.tables[AF]
+        t0 = time.perf_counter()
+        table.bulk_load(ids, 0.0, addrs=SockAddr("127.0.0.2", 4567))
+        dht.warmup()
+        sync()
+        load_s = time.perf_counter() - t0
+        require(len(table) > CT.HOST_SCAN_MAX_ROWS, "past the host scan")
+        ceng, peer = client_engine(csock, "planes-client", dht.myid,
+                                   ssock.getsockname()[1])
+
+        def pump_node() -> int:
+            """Every datagram queued at the node, one virtual ms each."""
+            n = 0
+            while True:
+                try:
+                    data, addr = ssock.recvfrom(64 * 1024)
+                except BlockingIOError:
+                    return n
+                clock["t"] += 0.001
+                dht.periodic(data, SockAddr(addr[0], addr[1]))
+                n += 1
+
+        def pump_client(wait: float) -> None:
+            ceng.scheduler.run()
+            r, _, _ = select.select([csock], [], [], wait)
+            while r:
+                data, addr = csock.recvfrom(64 * 1024)
+                ceng.process_message(data, SockAddr(addr[0], addr[1]))
+                r, _, _ = select.select([csock], [], [], 0)
+
+        def advance(to: float, step: float = 0.01) -> None:
+            while clock["t"] < to:
+                clock["t"] = min(to, clock["t"] + step)
+                dht.periodic(None, None)
+
+        nk, ng = args.planes_keys, args.planes_gets
+        keys = [InfoHash(k) for k in _near_keys(bytes(dht.myid), nk, 21)]
+        try:
+            # ---- a client puts one value on each key over loopback ---
+            tok = {}
+            ceng.send_get_values(peer, keys[0], Query(), want=1,
+                                 on_done=lambda r, a: tok.setdefault(
+                                     "t", a.ntoken))
+            end = time.monotonic() + 10
+            while "t" not in tok and time.monotonic() < end:
+                pump_node()
+                pump_client(0.005)
+            require(tok.get("t"), "the node handed the client a write token")
+            acked, expired = set(), []
+            sent_at, lat = {}, []
+            nxt = 0
+            t0 = time.perf_counter()
+            lookups.take()
+            end = time.monotonic() + 1200
+            while len(acked) < nk and not expired \
+                    and time.monotonic() < end:
+                while nxt < nk and nxt - len(acked) < PLANES_WINDOW:
+                    i = nxt
+                    nxt += 1
+                    sent_at[i] = time.perf_counter()
+                    ceng.send_announce_value(
+                        peer, keys[i], Value(b"planes value %d" % i,
+                                             value_id=i + 1), None, tok["t"],
+                        on_done=lambda r, a, _i=i: (
+                            acked.add(_i),
+                            lat.append(time.perf_counter() - sent_at[_i])),
+                        on_expired=lambda r, over, _i=i: over
+                        and expired.append(_i))
+                pump_client(0)
+                if not pump_node():
+                    pump_client(0.002)
+            put_s = time.perf_counter() - t0
+            require(len(acked) == nk and not expired,
+                    f"{len(acked)}/{nk} puts acknowledged, {len(expired)} "
+                    f"expired at the client, in {put_s:.1f} s")
+            stored = sum(1 for k in keys if dht.get_local(k))
+            require(stored == nk, f"{stored}/{nk} keys stored on the node")
+            put_lookups = LookupRoutes.routes(lookups.take())
+            lat.sort()
+            out["puts"] = {"keys": nk, "window": PLANES_WINDOW,
+                           "s": put_s, "puts_per_s": nk / put_s,
+                           "latency_ms": latency_ms(lat),
+                           "virtual_s": clock["t"],
+                           "announce_lookups": put_lookups}
+            # the stored keys' window decays before the gets
+            advance(clock["t"] + 20.0, 0.05)
+
+            # ---- a Zipf(0.99) get stream over the keys ---------------
+            zr = np.random.default_rng(args.seed + 31)
+            p = 1.0 / np.arange(1, nk + 1) ** 0.99
+            ranks = zr.choice(nk, size=ng, p=p / p.sum())
+            stream = [keys[r] for r in ranks]
+            got_on = [[] for _ in range(ng)]
+            done_on = [0] * ng
+            c_probe = Counted(HC, "cache_probe")
+            window_select.launches = 0
+            lookups.take()
+            t_get0 = clock["t"]
+            # one get per virtual ms, a shorter stream spread over 4 s
+            gap = max(0.001, 4.0 / ng)
+            t0 = time.perf_counter()
+            with c_probe:
+                for i, k in enumerate(stream):
+                    dht.get(k, lambda v, _i=i: got_on[_i].extend(v) or True,
+                            lambda ok, ns, _i=i: done_on.__setitem__(
+                                _i, done_on[_i] + 1))
+                    clock["t"] += gap
+                    dht.periodic(None, None)
+                # through at least three observatory ticks past the gets
+                advance(t_get0 + ng * gap + 4.5)
+                sync()
+            get_s = time.perf_counter() - t0
+            get_launches = window_select.launches
+            get_lks = lookups.take()
+            cache_on = dht.hotcache.snapshot()
+            ks_snap = dht.keyspace.snapshot()
+            # the sketch and histogram against their numpy count-min
+            want_s, want_h = sketch_ev.count_min(4, 2048)
+            got_s = dht.keyspace._sketch.cpu().numpy()
+            got_h = dht.keyspace._hist.cpu().numpy()
+            sketch_equal = (np.array_equal(got_s, want_s)
+                            and np.array_equal(got_h, want_h))
+            n_updates = sum(1 for e in sketch_ev.events if e[0] == "update")
+            n_observed = sum(len(e[1]) for e in sketch_ev.events
+                             if e[0] == "update")
+            n_decays = len(sketch_ev.events) - n_updates
+        finally:
+            sketch_ev.__exit__(None, None, None)
+        require(sketch_equal, "the sketch and histogram == a numpy count-min "
+                "of the same observed ids, cell for cell")
+        require(cache_on["hits"] > 0, f"cache hits > 0 ({cache_on}; top "
+                f"{ks_snap['top'][:3]}, observed {ks_snap['observed_total']}"
+                f", waves {len(get_lks)}, keyspace on {dht.keyspace.enabled})")
+        if cuda:
+            require(get_launches >= 1, "window_select launched on the "
+                    "get stream's misses")
+        hot = ks_snap["hot_keys"]
+        out["gets"] = {
+            "gets": ng, "distinct_keys": int(len(set(ranks))),
+            "s": get_s, "virtual_s": clock["t"] - t_get0,
+            "waves": len(get_lks), "routes": LookupRoutes.routes(get_lks),
+            "window_select_launches": get_launches,
+            "cache_probe_calls": c_probe.calls,
+            "cache": {k: cache_on[k] for k in (
+                "occupancy", "hits", "misses", "admissions", "evictions",
+                "invalidations", "hit_ratio")},
+            "hot_keys": len(hot), "hot_share_rule": PLANES_HOT_SHARE,
+            "top": [{k: t[k] for k in ("estimate", "share", "hot")}
+                    for t in ks_snap["top"]],
+            "replica_k_hottest": (dht._replica_k(InfoHash(bytes.fromhex(
+                hot[0]))) if hot else None),
+            "sketch": {"updates": n_updates, "ids_observed": n_observed,
+                       "decays": n_decays, "equal_to_numpy": sketch_equal},
+            "imbalance": ks_snap["shards"]["imbalance"]}
+
+        # ---- the same stream, the same node state, cache off ---------
+        cache = dht.hotcache
+        dht.hotcache = HotValueCache(HotCacheConfig(enabled=False),
+                                     clock=dht.scheduler.time)
+        got_off = [[] for _ in range(ng)]
+        t0 = time.perf_counter()
+        for i, k in enumerate(stream):
+            dht.get(k, lambda v, _i=i: got_off[_i].extend(v) or True)
+            dht.periodic(None, None)
+        advance(clock["t"] + 0.01, 0.001)
+        sync()
+        off_s = time.perf_counter() - t0
+        dht.hotcache = cache
+
+        def vals(g):
+            return [(v.id, bytes(v.data)) for v in g]
+        mismatch = [i for i in range(ng) if vals(got_on[i]) != vals(got_off[i])]
+        require(not mismatch, f"gets {mismatch[:5]} gave other values with "
+                "the cache off")
+        require(all(len(g) == 1 for g in got_on), "every get found its value")
+        out["gets"]["cache_off_replay"] = {"s": off_s, "equal": True}
+        lookups.take()
+
+        # ---- per-wave cost, planes on against off -------------------
+        # the same node with its planes, then with disabled ones in
+        # their place, in turns; waves of 64 gets on keys nobody stored
+        # (cache misses: the lookup runs in both)
+        on_planes = (dht.keyspace, cache, dht.listener_table)
+        off_planes = (KeyspaceObservatory(KeyspaceConfig(enabled=False)),
+                      HotValueCache(HotCacheConfig(enabled=False)),
+                      ListenerTable(batching="off"))
+        wr = np.random.default_rng(args.seed + 41)
+        per_wave = {}
+        for label in ("on", "off", "off_2", "on_2"):
+            dht.keyspace, dht.hotcache, dht.listener_table = (
+                on_planes if label.startswith("on") else off_planes)
+            waves = [[InfoHash(r.tobytes()) for r in wr.integers(
+                0, 256, size=(64, 20), dtype=np.uint8)] for _ in range(4)]
+            sync()
+            window_select.launches = 0
+            t0 = time.perf_counter()
+            with profile(activities=acts) as prof:
+                for tg in waves:
+                    for k in tg:
+                        dht.get(k, lambda v: True)
+                    clock["t"] += 0.003          # past the deadline
+                    dht.periodic(None, None)
+                for _ in range(2):               # drain the last wave
+                    clock["t"] += 0.003
+                    dht.periodic(None, None)
+                sync()
+            wall = time.perf_counter() - t0
+            lks = lookups.take()
+            per = device_totals(prof, cuda, len(waves))
+            per_wave[label] = {"waves": len(waves), "lookups": len(lks),
+                               "host_ms_per_wave": 1e3 * wall / len(waves),
+                               "window_select_launches":
+                                   window_select.launches,
+                               **{k: per[k] for k in DEVICE_TOTALS},
+                               "top": per["top"][:5]}
+        dht.keyspace, dht.hotcache, dht.listener_table = on_planes
+        out["per_wave"] = per_wave
+
+        # ---- listeners: capacity + overflow, waves of stored puts ---
+        lt_on = dht.listener_table
+        cap = lt_on.cfg.capacity
+        heard = {}
+        tokens = {}
+
+        def listener(i):
+            return lambda v, exp: heard.setdefault(i, []).extend(
+                (x.id, exp) for x in v) or True
+        lsnap0 = None
+        results = {}
+        for run in ("on", "off"):
+            if run == "off":
+                dht.listener_table = ListenerTable(
+                    batching="off", clock=dht.scheduler.time)
+            heard.clear()
+            # fresh keys per run (a listen registered on a key with
+            # values is handed them at once)
+            lkeys = [InfoHash(k) for k in _near_keys(
+                bytes(dht.myid), cap + 64, 51 if run == "on" else 52)]
+            for i, k in enumerate(lkeys):
+                tokens[i] = dht.listen(k, listener(i))
+            advance(clock["t"] + 0.05, 0.005)
+            if run == "on":
+                lsnap0 = dht.listener_table.snapshot()
+            pr = np.random.default_rng(61)
+            puts = []
+            base = 10_000_000 if run == "on" else 20_000_000
+            c_match = Counted(LS, "listener_match")
+            t0 = time.perf_counter()
+            with c_match:
+                for wave in range(8):
+                    for j in range(64):
+                        # half on listened keys (overflow ones among
+                        # them), half on keys nobody listens to
+                        li = (int(pr.integers(0, len(lkeys)))
+                              if j % 2 == 0 else -1)
+                        k = lkeys[li] if li >= 0 else InfoHash(
+                            pr.integers(0, 256, 20, dtype=np.uint8)
+                            .tobytes())
+                        vid = base + len(puts)
+                        puts.append(li)
+                        dht.storage_store(k, Value(b"l%d" % vid,
+                                                   value_id=vid),
+                                          clock["t"])
+                    advance(clock["t"] + 0.02, 0.002)
+                sync()
+            ls_s = time.perf_counter() - t0
+            want = {}
+            for n, li in enumerate(puts):
+                if li >= 0:
+                    want.setdefault(li, []).append(n)
+            got = {i: [vid - base for vid, exp in v if not exp]
+                   for i, v in heard.items()}
+            results[run] = {"got": got, "want": want, "s": ls_s,
+                            "matches": c_match.calls,
+                            "snap": dht.listener_table.snapshot()}
+            for i, k in enumerate(lkeys):
+                dht.cancel_listen(k, tokens[i])
+            advance(clock["t"] + 0.05, 0.005)
+        dht.listener_table = lt_on
+        on_r, off_r = results["on"], results["off"]
+        require(on_r["got"] == on_r["want"],
+                "every notification delivered once, batching on")
+        require(off_r["got"] == off_r["want"],
+                "every notification delivered once, batching off")
+        require(on_r["got"] == off_r["got"], "per listener, batching on "
+                "delivers in the off path's order")
+        require(lsnap0["occupancy"] == cap and lsnap0["overflow"] == 64,
+                f"{cap} listened keys on the table, 64 overflowing "
+                f"({lsnap0})")
+        require(on_r["matches"] >= 1, "listener_match launched")
+        out["listeners"] = {
+            "listened_keys": cap + 64, "capacity": cap,
+            "overflow": lsnap0["overflow"], "stored_puts": 8 * 64,
+            "notifications": sum(len(v) for v in on_r["want"].values()),
+            "listener_match_calls": on_r["matches"],
+            "on_s": on_r["s"], "off_s": off_r["s"],
+            "table_after": {k: on_r["snap"][k] for k in (
+                "matches", "misses", "flushes", "deliveries",
+                "values_delivered", "lag_p95_s")}}
+        out["planes_enabled"] = {"keyspace": dht.keyspace.enabled,
+                                 "cache": dht.hotcache.enabled,
+                                 "listeners": dht.listener_table.enabled}
+        require(all(out["planes_enabled"].values()), "no plane went dark "
+                f"({out['planes_enabled']})")
+        ssock.close()
+        csock.close()
+
+    failures = reg.counter("dht_ingest_wave_failures_total").value - failures0
+    emit({"phase": "planes", **card, "n": len(table), "load_s": load_s,
+          **out, "ingest_wave_failures": failures,
+          "error_records": len(records.errors),
+          "planes_dark_records": len(records.dark),
+          "phase_s": time.perf_counter() - t_phase})
+    require(failures == 0, "no ingest wave failed")
+    require(not records.errors, "no ERROR record from the port's loggers: "
+            + "; ".join(records.errors[:3]))
+    require(not records.dark, "no plane went dark: "
+            + "; ".join(records.dark[:3]))
+    return get_launches + sum(v["window_select_launches"]
+                              for v in per_wave.values())
 
 
 def main(argv=None) -> int:
@@ -1900,11 +2539,15 @@ def main(argv=None) -> int:
                          "runner phases)")
     ap.add_argument("--serve-gets", type=int, default=1000,
                     help="Dht.get calls of the serve phase's config 1")
+    ap.add_argument("--planes-keys", type=int, default=10_000,
+                    help="keys the planes phase's client puts")
+    ap.add_argument("--planes-gets", type=int, default=4096,
+                    help="Dht.get calls of the planes phase's Zipf stream")
     ap.add_argument("--phases", default="all",
-                    choices=("all", "churn", "serve", "runner"),
-                    help="'all', or 'churn' / 'serve' / 'runner' to run "
-                         "the device, build, parity and main phases and "
-                         "then only that phase")
+                    choices=("all", "churn", "serve", "runner", "planes"),
+                    help="'all', or 'churn' / 'serve' / 'runner' / "
+                         "'planes' to run the device, build, parity and "
+                         "main phases and then only that phase")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on the host with the plain versions "
@@ -2213,6 +2856,9 @@ def main(argv=None) -> int:
     if args.phases in ("all", "runner"):
         # the runner's path: its window_select launches join too
         launches["window_select"] += runner_phase(args, dev, card, sync)
+    if args.phases in ("all", "planes"):
+        # the planes phase's misses launch window_select too
+        launches["window_select"] += planes_phase(args, dev, card, sync)
 
     kernels = []
     for name, src_line in (("window_select",

@@ -14,7 +14,11 @@ engine, live searches and ingest wave builder), which answers
 get/find/put/listen through those tables; and the runner layer above it
 (``runtime/runner.py`` ``DhtRunner``: the receive, DHT and bootstrap
 threads over the native C++ datagram engine, with ``SecureDht``, the
-crypto layer, and the health and history observatories).
+crypto layer, and the health and history observatories).  The node's
+planes are on by default, as in the JAX node: the keyspace observatory
+(``keyspace.py``, a count-min sketch on the card), the hot-value cache
+(``hotcache.py``), the batched listener table (``listeners.py``) and
+the chaos plane's fault injection seam (``chaos.py``, armed on demand).
 
 The package imports torch and numpy only — never JAX, never
 ``opendht_tpu``, never the ``msgpack`` wheel (host-only modules it

@@ -4,8 +4,8 @@ The JAX ``NodeTable`` keeps its slab as numpy columns, its snapshot as
 device arrays and its churn view as numpy; a caller hands those over as
 numpy (``tbl._ids``, ``np.asarray(snap.sorted_ids)``, ``view.tomb_np``
 …) and gets the port's objects with the same contents.
-:func:`dht_from_jax` carries a whole serving node: its tables and its
-value store; :func:`secure_dht_from_jax` a node with its crypto overlay,
+:func:`dht_from_jax` carries a whole serving node: its tables, its
+value store and its planes' state; :func:`secure_dht_from_jax` a node with its crypto overlay,
 and :func:`identity_from_jax` a key and certificate (through DER).
 Nothing here imports the JAX package: the JAX objects are read through
 their attributes and methods.
@@ -103,13 +103,15 @@ def snapshot_from_numpy(sorted_ids, perm, n_valid, device=None) -> Snapshot:
                     int(n_valid), version=0, mask_key=("reachable", 0))
 
 
-#: the scalar ``Config`` fields a carried node keeps (the planes' own
-#: config objects are the JAX package's classes and stay behind)
+#: the scalar ``Config`` fields a carried node keeps
 _CONFIG_FIELDS = ("network", "is_bootstrap", "maintain_storage",
                   "storage_limit", "max_req_per_sec", "ingest_batching",
                   "ingest_fill_target", "ingest_deadline",
                   "ingest_queue_max", "ingest_admit_per_sec",
-                  "ingest_pipeline_depth")
+                  "ingest_pipeline_depth", "chaos_enabled",
+                  "listen_batching")
+#: the planes' config objects, rebuilt field by field as the port's
+_PLANE_CONFIGS = ("keyspace", "cache", "listeners")
 
 
 def _addr(a):
@@ -123,15 +125,20 @@ def dht_from_jax(src, send_fn, scheduler=None, *, device=None):
     liveness columns and address, through :func:`node_table_from_numpy`),
     its write-token secrets (tokens the JAX node handed out stay valid),
     and every stored value (re-stored from its packed bytes with its
-    creation time).  Left behind: bucket replacement candidates,
-    searches, listeners, per-IP quota buckets, the planes the port does
-    not carry, and ``resolve_mesh_t`` (the sharded resolve is not
-    ported).  ``scheduler`` should share ``src``'s clock, since the
-    stored values' times are on it."""
+    creation time), then the planes' state (:func:`carry_planes`).  Left
+    behind: bucket replacement candidates, searches, listeners, per-IP
+    quota buckets, the resharding plane and ``resolve_mesh_t`` (the
+    sharded resolve is not ported).  ``scheduler`` should share
+    ``src``'s clock, since the stored values' times and the planes'
+    deadlines are on it."""
+    import dataclasses
     from .core.value import Value
     from .runtime import Config, Dht
     cfg = Config(node_id=InfoHash(bytes(src.myid)),
                  **{f: getattr(src.config, f) for f in _CONFIG_FIELDS})
+    for f in _PLANE_CONFIGS:
+        setattr(cfg, f, type(getattr(cfg, f))(
+            **dataclasses.asdict(getattr(src.config, f))))
     afs = set(src.tables)
     dst = Dht(send_fn, cfg, scheduler, has_v4=socket.AF_INET in afs,
               has_v6=socket.AF_INET6 in afs, device=device)
@@ -148,7 +155,96 @@ def dht_from_jax(src, send_fn, scheduler=None, *, device=None):
             dst.storage_store(InfoHash(bytes(key)),
                               Value.from_packed(vs.data.get_packed()),
                               vs.created)
+    carry_planes(src, dst)
     return dst
+
+
+def _values(vals) -> list:
+    """JAX ``Value`` objects as the port's (through their packed bytes)."""
+    from .core.value import Value
+    return [Value.from_packed(v.get_packed()) for v in vals]
+
+
+def _rearm(src_job, dst, dst_job):
+    """``dst_job`` moved to ``src_job``'s time on ``dst``'s scheduler."""
+    if src_job is None or dst_job is None or src_job.time is None:
+        return dst_job
+    return dst.scheduler.edit(dst_job, src_job.time)
+
+
+def carry_planes(src, dst) -> None:
+    """Overwrite ``dst``'s (a port ``Dht``) planes with the state of
+    ``src``'s (a JAX ``Dht``), read as numpy and host objects: the
+    keyspace observatory's sketch, histogram, candidates, published top
+    and hot set, pending stored keys and window totals; the hot-value
+    cache's entries (values re-packed), id table with its valid mask
+    and slots, hot set, freshness tokens and hit window; the listener
+    table's rows, valid mask, slots, TTLs, tombstones, overflow and
+    delivery buffer.  Each plane's tick or flush job is moved to the
+    JAX job's time.  Run after the value store is restored (storing
+    feeds the planes)."""
+    dev = dst.device
+    ks, jks = dst.keyspace, src.keyspace
+    if jks._sketch is not None:
+        ks._sketch = torch.from_numpy(np.asarray(jks._sketch, np.int32)
+                                      .copy()).to(dev)
+        ks._hist = torch.from_numpy(np.asarray(jks._hist, np.int32)
+                                    .copy()).to(dev)
+    for name in ("_device_ok", "_sample_phase", "_observed_total",
+                 "_window_total", "_window_published", "_since_tick",
+                 "_shard_t", "_shard_virtual", "_imbalance"):
+        setattr(ks, name, getattr(jks, name))
+    ks._pending_store = list(jks._pending_store)
+    ks._candidates = dict(jks._candidates)
+    ks._top = [dict(t) for t in jks._top]
+    ks._hot = set(jks._hot)
+    ks._loads = list(jks._loads)
+    ks._hist_host = np.array(jks._hist_host, np.int64)
+    ks._job = _rearm(jks._job, dst, ks._job)
+
+    hc, jhc = dst.hotcache, src.hotcache
+    from .hotcache import _Entry
+    hc._entries = {}
+    for kb, e in jhc._entries.items():
+        ent = hc._entries[kb] = _Entry(kb, _values(e.values), e.expires,
+                                       e.store_backed)
+        ent.hits = e.hits
+    for name in ("_device_ok", "_dirty", "_win_hits", "_win_misses",
+                 "_ratio"):
+        setattr(hc, name, getattr(jhc, name))
+    hc._hot = set(jhc._hot)
+    hc._inval_seq = dict(jhc._inval_seq)
+    hc._slots = list(jhc._slots)
+    if jhc._ids_dev is not None:
+        hc._ids_dev = IK.to_keys(np.asarray(jhc._ids_dev), dev)
+        hc._valid_dev = torch.from_numpy(
+            np.asarray(jhc._valid_dev, bool).copy()).to(dev)
+    elif hc._device_ok:
+        hc._device_ok = None      # the port allocates its table lazily
+
+    lt, jlt = dst.listener_table, src.listener_table
+    lt._ids = np.array(jlt._ids, np.uint32)
+    lt._valid = np.array(jlt._valid, bool)
+    for name in ("_top", "_tombstones", "_device_ok", "_lag_p95"):
+        setattr(lt, name, getattr(jlt, name))
+    lt._slot_of = dict(jlt._slot_of)
+    lt._expires = dict(jlt._expires)
+    lt._overflow = set(jlt._overflow)
+    lt._buf = {kb: [(v, nv) for v, nv in zip(
+        _values([v for v, _ in items]), [nv for _, nv in items])]
+        for kb, items in jlt._buf.items()}
+    lt._buf_t0 = dict(jlt._buf_t0)
+    lt._win_lags = list(jlt._win_lags)
+    if jlt._ids_dev is not None:
+        lt._ids_dev = IK.to_keys(np.asarray(jlt._ids_dev), dev)
+        lt._valid_dev = torch.from_numpy(
+            np.asarray(jlt._valid_dev, bool).copy()).to(dev)
+    elif lt._device_ok:
+        lt._device_ok = None      # the port allocates its table lazily
+    lt._dirty = jlt._dirty or lt._ids_dev is None
+    if jlt._buf and src._listener_flush_job is not None:
+        dst._arm_listener_flush(
+            max(0.0, src._listener_flush_job.time - dst.scheduler.time()))
 
 
 def _pem_body(pem: bytes) -> bytes:

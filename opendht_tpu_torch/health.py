@@ -50,10 +50,9 @@ Import-light by design (stdlib + the telemetry/tracing spine) so the
 evaluator runs in minimal containers and pure-registry unit tests.
 
 A copy of the JAX package's ``health.py`` with its behaviour unchanged.
-The keyspace and hot-cache signals read their planes through
-``getattr(dht, ..., None)``; those planes are not ported (ROADMAP A.2),
-so the signals read as absent (unknown), as on a JAX node with the
-planes off.
+The keyspace and hot-cache signals read the node's planes through
+``getattr(dht, ..., None)`` (``dht.keyspace``, ``dht.hotcache``), as in
+JAX; a node without a plane reads its signal as absent (unknown).
 """
 
 from __future__ import annotations
@@ -803,7 +802,7 @@ class NodeHealth:
 
     def _shard_imbalance(self) -> Optional[float]:
         """Max/mean per-shard keyspace traffic from the keyspace
-        observatory (not ported: reads as absent) — already folded over
+        observatory — already folded over
         the live t-sharded row boundaries (or the uniform virtual
         split) on the observatory's own tick, so this is one attribute
         read.  None (unknown) while the window holds fewer than

@@ -1,19 +1,14 @@
 """Node status, stats and configuration (reference
 include/opendht/callbacks.h:41-117).
 
-A copy of the JAX package's ``runtime/config.py`` cut to the planes the
-port carries.  ``Config`` keeps the node, ingest, resolve-shard,
-health, history, waterfall, pipeline-observatory and peer-ledger
-fields, with the JAX defaults, and ``SecureDhtConfig`` is as in JAX.
-It leaves out ``keyspace``, ``cache``, ``chaos_enabled``, ``reshard``,
-``listen_batching`` and ``listeners``: the planes behind them are not
-ported yet, and the slice that ports one adds its field back with the
-JAX default.  Passing a left-out field
-raises TypeError, as for any dataclass.  The port's node serves as the
-JAX node does with those planes off (``keyspace.enabled=False``,
-``cache.enabled=False``, ``reshard.enabled=False``,
-``listen_batching="off"``), which the JAX package pins as
-result-identical to its defaults.
+A copy of the JAX package's ``runtime/config.py``, every field at its
+JAX default, and ``SecureDhtConfig`` as in JAX, with one field left out:
+``reshard``.  The load-aware resharding plane behind it acts on a
+t-sharded table, which the port does not carry yet (``ROADMAP.md``
+A.4); passing ``reshard`` raises TypeError, as for any dataclass, and
+the port's node serves as the JAX node does with
+``reshard.enabled=False``, which the JAX package pins as
+result-identical to its default.
 """
 
 from __future__ import annotations
@@ -30,6 +25,9 @@ from ..history import HistoryConfig  # noqa: F401  (knob surface)
 from ..waterfall import WaterfallConfig  # noqa: F401  (knob surface)
 from ..pipeline_observatory import PipelineObservatoryConfig  # noqa: F401
 from ..peers import PeersConfig  # noqa: F401  (knob surface)
+from ..keyspace import KeyspaceConfig  # noqa: F401  (knob surface)
+from ..hotcache import HotCacheConfig  # noqa: F401  (knob surface)
+from ..listeners import ListenerTableConfig  # noqa: F401  (knob surface)
 from ..infohash import InfoHash
 
 #: total value-store budget per node (callbacks.h:117)
@@ -139,6 +137,41 @@ class Config:
     #: engine falls back to its private windows).
     history: HistoryConfig = field(default_factory=HistoryConfig)
 
+    # --- keyspace traffic observatory (keyspace.py) -----------------
+    #: device-resident count-min sketch + 256-bin keyspace histogram
+    #: over the ingest waves' target ids (one batched scatter-add per
+    #: wave) and stored-key puts: periodic heavy-hitter top-K with
+    #: ``hot_key_emerged`` flight events, exponential-decay windowing,
+    #: and per-shard load attribution feeding the ``shard_imbalance``
+    #: health signal and the `dht_keyspace_*`/`dht_hotkey_*`/
+    #: `dht_shard_imbalance` gauges.
+    #: ``keyspace.enabled = False`` turns every launch and surface off
+    #: (results are identical either way — the sketch only observes).
+    keyspace: KeyspaceConfig = field(default_factory=KeyspaceConfig)
+
+    # --- hot-key serving cache (hotcache.py) ------------------------
+    #: the acting half of the observe→act loop: a bounded device table
+    #: of the observatory's hot keys (canonical 20-byte ids) + host
+    #: value payloads, probed in ONE batched XOR-compare before every
+    #: ingest wave so hot gets are served from cache without joining
+    #: the ``[Q]`` lookup, invalidated on observed puts (a put is
+    #: visible on the next get, never a stale hit), plus adaptive
+    #: replica widening (closest-8 → closest-16 while a key is hot,
+    #: narrowing on decay).  Surfaces: ``dht_cache_*`` series + hit
+    #: ratio, ``DhtRunner.get_cache()`` and a degrade-only
+    #: ``cache_hit_ratio`` health signal.  ``cache.enabled = False``
+    #: turns the probe, fast path and widening off — results are pinned
+    #: identical either way.
+    cache: HotCacheConfig = field(default_factory=HotCacheConfig)
+
+    # --- adversarial chaos plane (chaos.py) -------------------------
+    #: allow a FaultPlan to be armed on this node's live engine send
+    #: path (``chaos.arm_dht``).  Off by default: with no plan armed
+    #: the engine's fault hook is None and the send path is
+    #: byte-identical to a node without the plane.  Test harnesses that
+    #: own their nodes arm with ``force=True`` instead of flipping this.
+    chaos_enabled: bool = False
+
     # --- per-op latency waterfall (waterfall.py) -------------------
     #: always-on stage profiler over the full serving path:
     #: ``dht_stage_seconds{stage=}`` histograms (queue_wait /
@@ -188,6 +221,26 @@ class Config:
     #: builds (the ledger only observes; wire bytes are pinned
     #: bit-identical either way in benchmarks/exp_peers_r23.py).
     peers: PeersConfig = field(default_factory=PeersConfig)
+
+    # --- wave-scale listen/push (listeners.py) ----------------------
+    #: "on" defers each stored put's listener notification into a
+    #: bounded buffer answered by ONE batched XOR-equality pass per
+    #: ingest wave (``ops/listener_match.py``) and dispatches one
+    #: coalesced callback/``tell_listener`` per wave per listener;
+    #: "off" is the escape hatch — the exact synchronous per-put probe
+    #: path, pinned result-equivalent (same values, same per-listener
+    #: order).
+    listen_batching: str = "on"
+    #: the device-resident listener table behind the match: bounded
+    #: ``[L, 5]`` key-id slots (tombstoned/compacted on cancel/expiry,
+    #: host overflow past capacity), ``entry_ttl`` re-check sweep,
+    #: ``flush_deadline`` so idle nodes still deliver promptly.
+    #: Surfaces: ``dht_listener_*`` series on ``get_metrics()`` and the
+    #: history ring, ``DhtRunner.get_listeners()``.  Device failure
+    #: goes dark to the synchronous path (a delivery can be late, never
+    #: lost).
+    listeners: ListenerTableConfig = field(
+        default_factory=ListenerTableConfig)
 
 
 @dataclass

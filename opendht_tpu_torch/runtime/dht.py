@@ -17,18 +17,19 @@ SURVEY.md §7's design mapping.
 
 The port of the JAX package's ``runtime/dht.py``.  ``Dht`` takes
 ``device=`` (None = the CUDA card, raising without one), passed to each
-family's :class:`~opendht_tpu_torch.core.table.NodeTable`; a table past
-``HOST_SCAN_MAX_ROWS`` resolves through the device snapshot (the
-``window_select`` kernel) or, once it mutates, the churn view.  Four
-planes that run device programs of their own are not ported yet and are
-off here, each call site left out with a one-line comment naming it:
-the keyspace observatory, the hot-value cache (so the replica set is
-always closest-8), load-aware resharding and the batched listener table
-(so stored puts notify listeners synchronously, as
-``listen_batching="off"`` does in the JAX package, which pins each of
-these as result-identical to its default).  The sharded resolve is not
-ported either: ``resolve_mesh_t >= 2`` raises NotImplementedError at
-construction.  ``warmup`` lets a failure raise (see its docstring).
+family's :class:`~opendht_tpu_torch.core.table.NodeTable` and to the
+node's planes; a table past ``HOST_SCAN_MAX_ROWS`` resolves through the
+device snapshot (the ``window_select`` kernel) or, once it mutates, the
+churn view.  The planes are the JAX node's, on by default: the keyspace
+observatory (``keyspace.py``), the hot-value cache (``hotcache.py``,
+with its adaptive replica set) and the batched listener table
+(``listeners.py``).  One plane is left out, each of its call sites with
+a one-line comment: load-aware resharding, which acts on a t-sharded
+table, so the node serves as the JAX node does with
+``reshard.enabled=False`` (pinned result-identical to its default).  The
+sharded resolve is not ported either: ``resolve_mesh_t >= 2`` raises
+NotImplementedError at construction.  ``warmup`` lets a failure raise
+(see its docstring).
 Everything else is the JAX module's behaviour, unchanged.
 """
 
@@ -45,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import telemetry, tracing
+from .._device import resolve_device
 from ..infohash import InfoHash
 from ..ops import ids as IK
 from ..sockaddr import SockAddr
@@ -181,6 +183,9 @@ class Dht:
         self.scheduler = scheduler if scheduler is not None else Scheduler()
         self.types = TypeStore()
         self._has = {_socket.AF_INET: has_v4, _socket.AF_INET6: has_v6}
+        #: where the tables' device snapshots and the planes' device
+        #: state live (None = the CUDA card, raising without one)
+        self.device = resolve_device(device)
 
         self.engine = NetworkEngine(
             self.myid, config.network, send_fn, self.scheduler,
@@ -201,7 +206,7 @@ class Dht:
         # device-backed routing tables, one per family (↔ buckets4/6,
         # dht.h:370-381)
         self.tables: Dict[int, NodeTable] = {
-            af: NodeTable(self.myid, device=device)
+            af: NodeTable(self.myid, device=self.device)
             for af, on in self._has.items() if on}
         self.searches: Dict[int, Dict[InfoHash, Search]] = {
             af: {} for af in self.tables}
@@ -242,8 +247,34 @@ class Dht:
         # (wave_builder.py; config.ingest_* knobs)
         self.wave_builder = WaveBuilder(self, config)
 
-        # keyspace traffic observatory, hot-key serving cache and
-        # load-aware resharding: not ported (their planes are off)
+        # keyspace traffic observatory: device count-min sketch +
+        # top-8-bit histogram over the wave target ids (one batched
+        # scatter-add per ingest wave, fed by the wave builder) and
+        # stored-key puts; heavy-hitter top-K + shard load-balance
+        # attribution tick on this scheduler.  The resolve is unsharded,
+        # so the loads fold over the uniform virtual split (no
+        # shard_info).
+        from ..keyspace import KeyspaceObservatory
+        self.keyspace = KeyspaceObservatory(
+            getattr(config, "keyspace", None), node=str(self.myid),
+            device=self.device)
+        self.keyspace.attach(self.scheduler)
+
+        # hot-key serving cache: the acting half of the observe→act
+        # loop — subscribes to the observatory tick, keeps a bounded
+        # device table of the hot keys' ids (probed in one batched
+        # XOR-compare before every ingest wave) + host value payloads,
+        # and answers the adaptive replica-k question for the
+        # announce/republish paths (hotcache.py; config.cache knobs)
+        from ..hotcache import HotValueCache
+        self.hotcache = HotValueCache(
+            getattr(config, "cache", None), node=str(self.myid),
+            local_values=lambda kb: self.get_local(InfoHash(kb)),
+            clock=self.scheduler.time, device=self.device)
+        self.keyspace.subscribe(self.hotcache.on_keyspace_tick)
+
+        # load-aware resharding (reshard.py in the JAX package): not
+        # ported — it acts on a t-sharded table (ROADMAP A.4)
 
         # per-peer network observatory: bounded
         # LRU ledger over remote peers — Jacobson/Karels RTT estimator,
@@ -259,8 +290,24 @@ class Dht:
             clock=self.scheduler.time)
         self.engine.peers = self.peers if self.peers.enabled else None
 
-        # wave-scale listen/push (the batched listener table): not
-        # ported; stored puts notify listeners synchronously
+        # wave-scale listen/push: a bounded device table of the keys
+        # that currently have listeners — every stored put buffers here
+        # instead of probing listener dicts synchronously, and the next
+        # ingest wave (or the flush deadline) answers membership for the
+        # whole buffer in ONE batched XOR-equality pass
+        # (ops/listener_match.py), after which flush_listener_wave
+        # dispatches one coalesced callback/tell_listener per wave per
+        # listener.  listen_batching="off" is the escape hatch (the
+        # exact synchronous per-put path); device failure goes dark to
+        # the same path (listeners.py; config.listeners knobs).
+        from ..listeners import ListenerTable
+        self.listener_table = ListenerTable(
+            getattr(config, "listeners", None), node=str(self.myid),
+            batching=getattr(config, "listen_batching", "on"),
+            live_count=self._listener_live_count,
+            clock=self.scheduler.time,
+            request_flush=self._arm_listener_flush, device=self.device)
+        self._listener_flush_job = None
 
         # per-op latency waterfall: the always-on
         # stage profiler every serving layer feeds (wave builder,
@@ -382,7 +429,8 @@ class Dht:
         return 1
 
     # the resharding hook (_reshard_apply) and the keyspace shard-info
-    # callback (_keyspace_shard_info) belong to unported planes
+    # callback (_keyspace_shard_info) serve a t-sharded table, which the
+    # port does not carry: the observatory folds over its virtual split
 
     def find_closest_nodes_batched(self, targets: List[InfoHash], af: int,
                                    count: int = TARGET_NODES
@@ -619,19 +667,83 @@ class Dht:
         ``ingest_batching="off"`` path below is byte-for-byte the
         earlier per-op dispatch.
 
-        The hot-value cache plane (cache-eligible pure-get refills served
-        without a lookup) is not ported: every refill resolves."""
+        A PURE-GET refill is cache-eligible — the wave builder probes
+        the hot-value cache in one batched XOR-compare before the launch
+        and a hit completes the get via :meth:`_refill_cache_hit`
+        without the search ever joining the ``[Q]`` lookup; the
+        batching-off path takes the identical decision through the
+        host-side membership test (``hotcache.serve_one``)."""
         now = self.scheduler.time()
         sr.refill_time = now
+        cacheable = self._cache_eligible(sr)
         if self.wave_builder.enabled:
             if not sr.refill_pending:
                 sr.refill_pending = True
                 self.wave_builder.submit(
                     sr.id, sr.af, SEARCH_NODES,
-                    lambda nodes, _sr=sr: self._refill_apply(_sr, nodes))
+                    lambda nodes, _sr=sr: self._refill_apply(_sr, nodes),
+                    cache_cb=(lambda values, _sr=sr:
+                              self._refill_cache_hit(_sr, values))
+                    if cacheable else None)
             return 0
+        if cacheable:
+            vals = self.hotcache.serve_one(sr.id)
+            if vals is not None:
+                self.keyspace.observe_hashes([sr.id], source="cache")
+                self._refill_cache_hit(sr, vals)
+                return 0
         return self._refill_insert(
             sr, self.find_closest_nodes(sr.id, sr.af, SEARCH_NODES))
+
+    def _cache_eligible(self, sr: Search) -> bool:
+        """Only PURE-GET searches may be served from the hot-value
+        cache: an announce needs real closest nodes to put to, a listen
+        needs live subscriptions, and a field query projects server-
+        side — all of those always ride the wave.  Pinned result-
+        equivalent cache-on vs cache-off in the JAX package's
+        tests/test_hotcache.py."""
+        hc = self.hotcache
+        if hc is None or not hc.enabled:
+            return False
+        if sr.announce or sr.listeners or not sr.callbacks:
+            return False
+        return all(g.get_cb is not None and g.query_cb is None
+                   for g in sr.callbacks)
+
+    def _refill_cache_hit(self, sr: Search, values: List[Value]) -> None:
+        """Serve a cache-eligible search from the hot-value cache: the
+        cached values complete every pending get (through its own
+        filter) exactly as :meth:`_search_step`'s completed-get block
+        would, without the search joining a lookup launch.  The search
+        object stays reusable — a later op on the same key re-opens it
+        through the normal path.
+
+        Eligibility is RE-CHECKED here: it was decided at submit time,
+        and an announce/listen can join the search while the refill sat
+        in the wave queue — swallowing that refill would leave the
+        search with zero candidates and the put/listen would expire
+        unserved.  A no-longer-eligible search falls
+        through to the normal refill path instead."""
+        sr.refill_pending = False
+        if not self._cache_eligible(sr):
+            self._refill(sr)
+            if not sr.expired and not sr.done:
+                self._edit_step(sr, self.scheduler.time())
+            return
+        completed = list(sr.callbacks)
+        for get in completed:
+            vals = [v for v in values
+                    if get.filter is None or get.filter(v)]
+            if get.get_cb and vals:
+                get.get_cb(vals)
+            sr.set_get_done(get)
+            sr.callbacks.remove(get)
+        for get in completed:
+            for sn in sr.nodes:
+                sn.get_status.pop(get.query, None)
+                sn.pagination_queries.pop(get.query, None)
+        if not sr.callbacks and not sr.announce and not sr.listeners:
+            sr.set_done()
 
     def _refill_insert(self, sr: Search, nodes: List[Node]) -> int:
         now = self.scheduler.time()
@@ -875,18 +987,32 @@ class Dht:
             self._edit_step(sr, self.scheduler.time())
 
     # ----------------------------------------------------------- announce path
+    def _replica_k(self, key: InfoHash) -> int:
+        """Adaptive replica set for ``key``: closest-16
+        while the key is in the hot-cache's hot set (widening relieves
+        the storing-node bottleneck the way Kademlia §4.1 prescribes),
+        closest-8 otherwise — and back to 8 the tick after the key
+        decays out.  Consulted by the announce walk and the
+        calendar-binned republish resolve (the JAX package pins it vs a
+        scalar oracle in tests/test_hotcache.py)."""
+        return self.hotcache.replica_k(key)
+
     @_traced_search
     def _search_send_announce(self, sr: Search) -> None:
         """Probe synced nodes with SELECT id,seq then put/refresh
         (↔ Dht::searchSendAnnounceValue, src/dht.cpp:380-485).
 
-        The replica walk counts to the closest-8 (the hot-value cache
-        plane, which widens hot keys to 16 and the search's capacity
-        with them, is not ported)."""
+        The replica walk counts to :meth:`_replica_k` (8, or 16 for hot
+        keys) instead of the fixed TARGET_NODES, and the search's
+        candidate capacity widens by the same margin so the wider walk
+        has candidates to reach — both re-evaluated per call, so a key
+        decaying out of the hot set narrows automatically."""
         if not sr.announce:
             return
         now = self.scheduler.time()
-        rk = TARGET_NODES
+        rk = self._replica_k(sr.id)
+        sr.capacity = max(SEARCH_NODES,
+                          rk + (SEARCH_NODES - TARGET_NODES))
         probe_query = Query(Select().field(Field.ID).field(Field.SEQ_NUM))
         i = 0
         for sn in sr.nodes:
@@ -1053,7 +1179,10 @@ class Dht:
         log.debug("[search %s] get", key, extra={"dht_hash": bytes(key)})
         q = Query(Select(), where or Where())
         f = Filters.chain(f, q.where.get_filter())
-        # hot-value cache plane (the offer token): not ported
+        # captured BEFORE the search starts: an invalidation landing
+        # while this get is in flight bumps the key's token and the
+        # fill-on-get offer below is rejected (freshness)
+        offer_token = self.hotcache.offer_token(key)
         # done when the user stops us or both family searches finish;
         # ok = user-stop or either search completing (dht.cpp:952-978)
         state = {"done": False, "stop": False, "done4": False, "done6": False,
@@ -1065,7 +1194,21 @@ class Dht:
                 return
             if state["stop"] or (state["done4"] and state["done6"]):
                 state["done"] = True
-                # hot-value cache plane (fill-on-get): not ported
+                # fill-on-get (the Kademlia lookup-path caching move): a
+                # completed get on a currently-hot, not-yet-cached key
+                # seeds the hot-value cache with the observed value set
+                # — the next hot get serves from it.  ONLY unfiltered
+                # gets may seed: a where/user filter makes
+                # state["values"] a SUBSET of the key's value set, and
+                # caching it would drop values from later unfiltered
+                # gets.  The offer token rejects a seed whose key was
+                # invalidated by a put while this get was in flight —
+                # the stale pre-put set must not re-enter through the
+                # fill path.
+                if state["values"] and f is None \
+                        and self.hotcache.wants(key):
+                    self.hotcache.offer(key, list(state["values"]),
+                                        token=offer_token)
                 if done_cb:
                     done_cb(state["stop"] or state["ok4"] or state["ok6"],
                             state["nodes"])
@@ -1098,7 +1241,8 @@ class Dht:
             return cb
 
         # preset non-running families FIRST (the put() discipline): a
-        # get that completes SYNCHRONOUSLY inside _search must see the
+        # cache-served get completes SYNCHRONOUSLY inside _search on
+        # the batching-off path, and its done callback must see the
         # final flag state or the op never reports done
         ran = False
         families = ((_socket.AF_INET, "done4", "ok4"),
@@ -1176,8 +1320,11 @@ class Dht:
             return
         if value.id == Value.INVALID_ID:
             value.id = random_value_id()
-        # hot-value cache plane (invalidate before the announce): not
-        # ported
+        # freshness: invalidate BEFORE the announce, even when the local
+        # store rejects the value (full/over-quota) — the put is still
+        # propagating to the network, and a stale cache hit must not
+        # outlive it
+        self.hotcache.invalidate(key)
         state = {"done": False, "done4": False, "done6": False,
                  "ok4": False, "ok6": False}
 
@@ -1339,7 +1486,7 @@ class Dht:
             st.listener_token += 1
             token_local = st.listener_token
             st.local_listeners[token_local] = LocalListener(q, filt, gcb)
-            # listener-table plane (row sync): not ported
+            self._listener_sync(key, st)
 
         token4 = self._listen_to(key, _socket.AF_INET, gcb, filt, q)
         token6 = self._listen_to(key, _socket.AF_INET6, gcb, filt, q)
@@ -1367,7 +1514,7 @@ class Dht:
         st = self.store.get(key)
         if st is not None and token_local:
             st.local_listeners.pop(token_local, None)
-            # listener-table plane (row sync): not ported
+            self._listener_sync(key, st)
         for af, t in ((_socket.AF_INET, token4), (_socket.AF_INET6, token6)):
             sr = self._searches_of(af).get(key)
             if sr is not None and t:
@@ -1440,8 +1587,15 @@ class Dht:
             self.total_store_size += diff.size_diff
             self.total_values += diff.values_diff
             self._calendar_add(key, expiration)
-            # keyspace observatory (stored-key traffic) and hot-value
-            # cache (freshness invalidation) planes: not ported
+            # keyspace observatory: stored-key puts count as traffic too
+            # — buffered host-side, flushed into the next wave's one
+            # scatter-add (never an update of their own)
+            self.keyspace.note_stored(key)
+            # hot-cache freshness: an observed put — local API put or
+            # incoming announce — invalidates the cached entry, so the
+            # NEXT get takes the full path and can never be served the
+            # stale value set
+            self.hotcache.invalidate(key)
             if self.total_store_size > self.max_store_size:
                 self._expire_store_all()
             self._storage_changed(key, st, vs.data, diff.values_diff > 0)
@@ -1450,10 +1604,22 @@ class Dht:
     def _storage_changed(self, key: InfoHash, st: Storage, value: Value,
                          new_value: bool) -> None:
         """Notify local + remote listeners of a new value
-        (↔ Dht::storageChanged, src/dht.cpp:1149-1191) — synchronously,
-        the JAX package's ``listen_batching="off"`` path: the listener-
-        table plane that defers the notification into the next wave is
-        not ported."""
+        (↔ Dht::storageChanged, src/dht.cpp:1149-1191).
+
+        With ``listen_batching="on"`` the put is
+        BUFFERED on the listener table instead — the next ingest
+        wave's single ``listener_match`` launch answers which buffered
+        keys have listeners, and :meth:`flush_listener_wave`
+        dispatches one coalesced callback/``tell_listener`` per wave
+        per listener (same values, same per-listener order as the
+        synchronous body below — the JAX package pins this in its
+        tests/test_listener.py).
+        This also batches the request-handler re-storage loops
+        (``_on_announce``'s per-value ``storage_store``): a
+        listen-triggered store now rides the wave cadence instead of
+        probing listener dicts inside the handler."""
+        if self.listener_table.note_stored(bytes(key), value, new_value):
+            return
         if new_value:
             cbs = []
             for l in st.local_listeners.values():
@@ -1470,9 +1636,94 @@ class Dht:
                 self.engine.tell_listener(node, sid, key, 0, ntoken,
                                           [], [], [value], l.query)
 
-    # the listener-table plane's helpers (_listener_live_count,
-    # _listener_sync, _arm_listener_flush, flush_listener_wave): not
-    # ported
+    # ------------------------------------------------ wave-scale listen/push
+    def _listener_live_count(self, kb: bytes) -> int:
+        """The listener table's TTL-sweep re-count: how many live
+        listeners (local + remote) a key has RIGHT NOW — the sweep
+        refreshes rows that still have some and tombstones the rest
+        (remote listeners expire silently in ``Storage.expire``; no
+        cancel ever reaches :meth:`_listener_sync` for them)."""
+        st = self.store.get(InfoHash(kb))
+        if st is None:
+            return 0
+        return (len(st.local_listeners)
+                + sum(len(m) for m in st.listeners.values()))
+
+    def _listener_sync(self, key: InfoHash, st: Optional[Storage]) -> None:
+        """Re-sync one key's row on the listener table after any
+        listener-set mutation (listen/cancel/remote add/expiry sweep)
+        — the table tracks exactly the keys with ≥1 listener, so the
+        batched match and the synchronous probe answer identically."""
+        lt = self.listener_table
+        if not lt.enabled:
+            return
+        n = 0
+        if st is not None:
+            n = (len(st.local_listeners)
+                 + sum(len(m) for m in st.listeners.values()))
+        lt.sync_key(bytes(key), n)
+
+    def _arm_listener_flush(self, delay: float) -> None:
+        """The table's ``request_flush`` callback: guarantee a
+        :meth:`flush_listener_wave` within ``delay`` seconds (idle
+        nodes deliver on the deadline; busy nodes usually flush
+        earlier, piggybacked on the next ingest wave fire)."""
+        t = self.scheduler.time() + max(0.0, delay)
+        job = self._listener_flush_job
+        if job is not None and not job.cancelled:
+            if job.time is not None and t < job.time:
+                self._listener_flush_job = self.scheduler.edit(job, t)
+        else:
+            self._listener_flush_job = self.scheduler.add(
+                t, self.flush_listener_wave)
+
+    def flush_listener_wave(self) -> None:
+        """Deliver every buffered stored put whose key has listeners:
+        ONE ``listener_match`` launch over the buffer (the table's
+        :meth:`~opendht_tpu_torch.listeners.ListenerTable.flush`), then one
+        coalesced dispatch per listener — local callbacks get the
+        key's new values as a single batch, each remote ``(node,
+        sid)`` socket gets a single ``tell_listener`` with the full
+        filtered value list (↔ the per-value loop in the synchronous
+        ``_storage_changed`` body; order within a key is arrival
+        order, so per-listener ordering is preserved).  Runs as a
+        scheduler job and from the wave builder's fire."""
+        self._listener_flush_job = None
+        lt = self.listener_table
+        if not lt.pending():
+            return
+        dispatches = values_n = 0
+        for kb, items in lt.flush():
+            key = InfoHash(kb)
+            st = self.store.get(key)
+            if st is None:
+                continue
+            new_vals = [v for v, nv in items if nv]
+            all_vals = [v for v, _nv in items]
+            if new_vals:
+                cbs = []
+                for l in st.local_listeners.values():
+                    vs = ([v for v in new_vals if l.filter(v)]
+                          if l.filter is not None else list(new_vals))
+                    if vs:
+                        cbs.append((l.get_cb, vs))
+                for cb, vs in cbs:
+                    cb(vs, False)
+                    dispatches += 1
+                    values_n += len(vs)
+            for node, node_listeners in list(st.listeners.items()):
+                for sid, l in node_listeners.items():
+                    f = l.query.where.get_filter()
+                    vs = ([v for v in all_vals if f(v)]
+                          if f is not None else list(all_vals))
+                    if not vs:
+                        continue
+                    ntoken = self._make_token(node.addr, False)
+                    self.engine.tell_listener(node, sid, key, 0, ntoken,
+                                              [], [], vs, l.query)
+                    dispatches += 1
+                    values_n += len(vs)
+        lt.note_delivered(dispatches, values_n)
 
     def _storage_add_listener(self, key: InfoHash, node: Node,
                               socket_id: int, query: Query) -> None:
@@ -1495,9 +1746,10 @@ class Dht:
                     self._make_token(node.addr, False),
                     closest4, closest6, vals, query)
             node_listeners[socket_id] = Listener(now, query, socket_id)
+            self._listener_sync(key, st)
         else:
             l.refresh(now, query)
-        # listener-table plane (row sync): not ported
+            self._listener_sync(key, st)
 
     def _expire_storage(self, key: InfoHash) -> None:
         st = self.store.get(key)
@@ -1509,9 +1761,13 @@ class Dht:
         size_diff, expired = st.expire(key, self.scheduler.time())
         self.total_store_size += size_diff
         self.total_values -= len(expired)
-        # listener-table plane (row re-sync after the expiry sweep) and
-        # hot-value cache plane (invalidation): not ported
+        # the expiry sweep may have dropped stale remote listeners —
+        # re-sync the key's listener-table row
+        self._listener_sync(key, st)
         if expired:
+            # a cached entry may hold the just-expired values; drop it
+            # (the tick re-admits from the store's surviving set)
+            self.hotcache.invalidate(key)
             vids = [v.id for v in expired]
             for node, node_listeners in list(st.listeners.items()):
                 for sid in node_listeners:
@@ -1529,6 +1785,7 @@ class Dht:
             self._expire_store_one(key, st)
             if st.empty() and not st.listeners and not st.local_listeners:
                 del self.store[key]
+                self._listener_sync(key, None)
         while self.total_store_size > self.max_store_size:
             if not self.store_quota:
                 log.warning("no space left: local data consumes all quota")
@@ -1622,7 +1879,8 @@ class Dht:
             return
         self._storage_maintenance_batched([key])
 
-    def _republish_predicate(self, keys: List[InfoHash], af: int
+    def _republish_predicate(self, keys: List[InfoHash], af: int,
+                             ks: Optional[List[int]] = None
                              ) -> List[bool]:
         """The "no longer among the k closest" test for MANY keys from
         ONE batched closest-k resolve (↔ the per-key
@@ -1633,18 +1891,25 @@ class Dht:
         same `< 0` strictness on ties; pinned in
         tests/test_maintenance.py) — including tables smaller than k
         (the last VALID row, not the padded k-th) and empty tables
-        (no nodes ⇒ no republish, family keeps responsibility).  Every
-        key resolves at closest-8: the hot-value cache plane's per-key
-        replica widening is not ported."""
+        (no nodes ⇒ no republish, family keeps responsibility).
+
+        ``ks`` is the per-key replica set from :meth:`_replica_k` — the
+        ONE resolve runs at ``max(ks)`` and each key's decision reads
+        the last servable row WITHIN its own first ``ks[i]`` columns
+        (the top-k prefix of a wider top-k is the narrower top-k, so a
+        uniform ks == [8]*n is bit-identical to the unwidened path — hot
+        keys widen to 16 without a second launch)."""
         table = self._table(af)
         out = [False] * len(keys)
         if table is None or len(table) == 0 or not keys:
             return out
-        rows, _dist = table.find_closest(list(keys), k=TARGET_NODES,
+        if ks is None:
+            ks = [TARGET_NODES] * len(keys)
+        rows, _dist = table.find_closest(list(keys), k=max(ks),
                                          now=self.scheduler.time())
         last_rows = np.full(len(keys), -1, dtype=np.int64)
         for qi in range(rows.shape[0]):
-            for j in range(rows.shape[1] - 1, -1, -1):
+            for j in range(min(ks[qi], rows.shape[1]) - 1, -1, -1):
                 r = int(rows[qi, j])
                 if r >= 0 and table.addr_of(r) is not None:
                     last_rows[qi] = r
@@ -1672,9 +1937,16 @@ class Dht:
         announced = 0
         still = {bytes(k): {af: True for af in self.tables} for k in keys}
         reg = telemetry.get_registry()
-        # ONE closest-8 launch per family, riding the same calendar bins
+        # adaptive replica widening: keys in the hot set resolve/
+        # replicate at closest-16, the rest at closest-8 — ONE launch
+        # per family either way (the predicate resolves at max(ks) and
+        # reads each key's own k-prefix), riding the same calendar bins
+        ks = [self._replica_k(k) for k in keys]
+        widened = sum(1 for k_i in ks if k_i > TARGET_NODES)
+        if widened:
+            reg.counter("dht_cache_republish_widened_total").inc(widened)
         with reg.span("dht_maintenance_republish_seconds"):
-            republish = {af: self._republish_predicate(keys, af)
+            republish = {af: self._republish_predicate(keys, af, ks)
                          for af in self.tables}
         # re-schedule EVERY key before the announce fan-out: a raising
         # callback mid-announce must not silently end the whole due
@@ -1824,10 +2096,14 @@ class Dht:
             raise DhtProtocolException(DhtProtocolException.UNAUTHORIZED,
                                        DhtProtocolException.PUT_WRONG_TOKEN)
         # store only if we're plausibly among the SEARCH_NODES closest
-        # (src/dht.cpp:2290-2298) — one batched device call.  (The
-        # hot-value cache plane's exemption for hot keys is not ported.)
+        # (src/dht.cpp:2290-2298) — one batched device call.  Keys hot
+        # in THIS node's observatory skip the too-far rejection: the
+        # widened closest-16 announce fan-out reaches nodes past the
+        # closest-8, and refusing their stores would defeat the replica
+        # widening the hot set asked for.
         table = self._table(node.family)
-        if table is not None and len(table) > 0:
+        if table is not None and len(table) > 0 \
+                and not self.hotcache.is_hot(key):
             rows, _ = table.find_closest([key], k=SEARCH_NODES,
                                          now=self.scheduler.time())
             rows = rows[0][rows[0] >= 0]

@@ -23,9 +23,9 @@ A copy of the JAX package's ``runtime/runner.py`` with its behaviour
 unchanged, except where a cut is marked with the ROADMAP item that
 restores it: the proxy backend (``enable_proxy``,
 ``RunnerConfig(proxy_server=)`` raise NotImplementedError: A.6), the
-OPEN-bound tracker and the kernel ledger's gauges (A.3), and the planes
-not ported yet (keyspace, hot cache, reshard, listener table: A.2 and
-A.4), whose accessors answer as the JAX runner does for an absent plane.
+OPEN-bound tracker and the kernel ledger's gauges (A.3), and the
+resharding plane (A.4), whose accessor answers as the JAX runner does
+for an absent plane.
 The device is explicit: ``run(device=None)`` means the CUDA card and
 raises when there is none; tests pass ``device="cpu"``.  Every table
 and device call runs on the DHT thread (or the caller of ``loop()``);
@@ -254,8 +254,10 @@ class DhtRunner:
             # and pushes an occupancy window checkpoint
             self._history.add_frame_hook(
                 lambda _frame, _wb=dht.wave_builder: _wb.frame_tick())
-            # the listener table's frame hook (its windowed delivery-lag
-            # p95) is not ported: ROADMAP A.2
+            # listener table: the same frame cadence rolls the windowed
+            # delivery-lag p95 into the dht_listener_lag_p95 gauge
+            self._history.add_frame_hook(
+                lambda _frame, _lt=dht.listener_table: _lt.frame_tick())
 
         # health observatory: the declarative SLO engine +
         # node verdict, evaluated on a periodic scheduler tick riding
@@ -882,12 +884,18 @@ class DhtRunner:
         except Exception:
             log.exception("black-box bundle capture failed")
 
-    # The planes below are not ported; each accessor answers as the JAX
-    # runner does for a node without the plane.
     def get_keyspace(self) -> dict:
-        """The keyspace traffic observatory snapshot: the plane is not
-        ported (ROADMAP A.2)."""
-        return {"enabled": False}
+        """The keyspace traffic observatory snapshot: the
+        256-bin keyspace histogram, the heavy-hitter top-K with
+        windowed estimates/shares, and the per-shard load attribution
+        + imbalance ratio."""
+        try:
+            ks = getattr(self._dht, "keyspace", None)
+            if ks is None:
+                return {"enabled": False}
+            return ks.snapshot()
+        except Exception:
+            return {"enabled": False}
 
     def get_reshard(self) -> dict:
         """The load-aware resharding snapshot: the plane is not ported
@@ -895,9 +903,16 @@ class DhtRunner:
         return {"enabled": False}
 
     def get_cache(self) -> dict:
-        """The hot-key serving cache snapshot: the plane is not ported
-        (ROADMAP A.2)."""
-        return {"enabled": False}
+        """The hot-key serving cache snapshot: occupancy,
+        per-entry hit counts, windowed hit ratio, invalidation/eviction
+        totals and the current widened hot set."""
+        try:
+            hc = getattr(self._dht, "hotcache", None)
+            if hc is None:
+                return {"enabled": False}
+            return hc.snapshot()
+        except Exception:
+            return {"enabled": False}
 
     def get_profile(self) -> dict:
         """The per-op latency waterfall snapshot: per-stage
@@ -937,9 +952,17 @@ class DhtRunner:
             return {"enabled": False}
 
     def get_listeners(self) -> dict:
-        """The wave-scale listener-table snapshot: the plane is not
-        ported (ROADMAP A.2)."""
-        return {"enabled": False}
+        """The wave-scale listener-table snapshot:
+        occupancy/tombstones/overflow of the device key-id table,
+        buffered puts, match/flush/delivery counters, the windowed
+        delivery-lag p95 and the soonest-expiring entries."""
+        try:
+            lt = getattr(self._dht, "listener_table", None)
+            if lt is None:
+                return {"enabled": False}
+            return lt.snapshot()
+        except Exception:
+            return {"enabled": False}
 
     def get_pipeline_trace(self) -> dict:
         """Perfetto lane export of the retained wave timeline: one pid

@@ -8,10 +8,12 @@ port's CUDA-event probe (``core/table.py`` ``PendingLookup.ready``:
 the JAX builder polls an async dispatch.  And the ``dht.search.wave``
 span carries no device-cost attributes: the JAX builder takes them from
 its XLA cost ledger (``profiling.ingest_wave_attrs``), which has no
-torch counterpart yet.  The hooks of the planes the port has not ported
-(keyspace observatory, hot-value cache, resharding, listener table) are
-left out, each with a one-line comment naming its plane: the builder
-does what the JAX builder does with those planes off.
+torch counterpart yet.  The planes' hooks are the JAX builder's: the
+keyspace observatory sees each wave's targets, the hot-value cache's
+probe serves cached gets before the launch, and the buffered stored
+puts ride each fire's listener flush.  The resharding plane's hook (the
+boundary generation a wave ran on) is left out with the plane: every
+wave reports generation 0, the uniform split.
 
 Five rounds of kernel work made the device side of a lookup a ``[Q]``
 wave (``find_closest_nodes_batched`` → one lane-padded top-k launch for
@@ -120,10 +122,11 @@ class _Entry:
     cross-node assembler's monotonicity check)."""
 
     __slots__ = ("target", "af", "k", "cb", "t_enq", "t_wall", "ctx",
-                 "kind", "retries")
+                 "kind", "retries", "cache_cb")
 
     def __init__(self, target: InfoHash, af: int, k: int, cb: Callable,
-                 t_enq: float, t_wall: float, ctx, kind: str):
+                 t_enq: float, t_wall: float, ctx, kind: str,
+                 cache_cb: "Callable | None" = None):
         self.target = target
         self.af = af
         self.k = k
@@ -133,7 +136,10 @@ class _Entry:
         self.ctx = ctx
         self.kind = kind
         self.retries = 0              # failed-launch re-queues so far
-        # hot-value cache plane (cache-eligible entries): not ported
+        # non-None marks a CACHE-ELIGIBLE entry (a pure-get refill) — a
+        # hot-cache probe hit calls cache_cb(values) and the entry never
+        # joins the lookup launch
+        self.cache_cb = cache_cb
 
 
 class _InflightWave:
@@ -156,7 +162,7 @@ class _InflightWave:
         self.t_dispatch = t_dispatch  # wall clock at dispatch
         self.dispatch_s = dispatch_s  # host cost of the async dispatch
         self.t_pick = t_pick          # wall clock at wave pickup
-        self.probe_s = probe_s        # cache-probe share (0: no cache)
+        self.probe_s = probe_s        # cache-probe share of this wave
         self.slot = slot              # waves already in flight at launch
         self.seq = seq                # pipeline-observatory wave id
 
@@ -269,14 +275,23 @@ class WaveBuilder:
 
     # ------------------------------------------------------------- ingest
     def submit(self, target: InfoHash, af: int, k: int,
-               cb: Callable[[List], None], *, kind: str = "refill") -> None:
+               cb: Callable[[List], None], *, kind: str = "refill",
+               cache_cb: "Callable | None" = None) -> None:
         """Queue one closest-``k`` lookup for ``target``; ``cb(nodes)``
         fires from the wave that carries it (immediately, with the
         identical per-op launch, when batching is off).  Never sheds —
-        admission already happened at the op boundary."""
+        admission already happened at the op boundary.
+
+        ``cache_cb`` marks the entry cache-eligible: the pre-launch
+        hot-cache probe may serve it values instead of nodes
+        (``_serve_cached``), in which case it never joins the launch."""
         if not self.enabled:
-            # escape hatch: the per-op [1] launch (keyspace observatory
-            # plane, which still sees the target: not ported)
+            # escape hatch: the per-op [1] launch — the keyspace
+            # observatory still sees the target (its surfaces must not
+            # go dark when batching is off; results are untouched)
+            ks = getattr(self._dht, "keyspace", None)
+            if ks is not None:
+                ks.observe_hashes([target])
             cb(self._dht.find_closest_nodes_batched([target], af, k)[0])
             return
         now = self._dht.scheduler.time()
@@ -286,7 +301,7 @@ class WaveBuilder:
             # the fill_start edge of its lane timeline
             self.observatory.note_fill_start(t_wall)
         self._pending.append(_Entry(target, af, k, cb, now, t_wall,
-                                    tracing.current(), kind))
+                                    tracing.current(), kind, cache_cb))
         depth = len(self._pending)
         self._m_depth.set(depth)
         c = self._m_ops.get(kind)
@@ -329,8 +344,16 @@ class WaveBuilder:
         scatter inline — everything else is left to the drainer job, so
         this fire returns to the runner loop with the device busy."""
         self._job = None
-        # listener-table plane (its buffered puts ride this fire's
-        # flush): not ported
+        # stored puts buffered since the last wave ride THIS fire's
+        # single listener_match pass — one coalesced delivery dispatch
+        # per wave per listener (runtime/dht.py flush_listener_wave; the
+        # deadline job is the idle-node fallback)
+        lt = getattr(self._dht, "listener_table", None)
+        if lt is not None and lt.pending():
+            try:
+                self._dht.flush_listener_wave()
+            except Exception:
+                log.exception("listener wave flush failed")
         if not self._pending:
             return
         batch = list(self._pending)
@@ -346,7 +369,9 @@ class WaveBuilder:
             while len(self._inflight) >= self.pipeline_depth:
                 self._drain_one(wf)
         # waterfall: queue_wait = admission → wave pickup,
-        # off the honest enqueue stamp (t_wall, see _Entry)
+        # off the honest enqueue stamp (t_wall, see _Entry) — stamped
+        # here, before the cache probe, so a cache-served op still
+        # contributes its coalesce tax
         t_pick = _time.time()
         # fill_done edge: the observatory hands back this wave group's
         # fill_start and re-arms for the next (None with the plane off)
@@ -355,26 +380,78 @@ class WaveBuilder:
             for e in batch:
                 wf.observe("queue_wait", max(0.0, t_pick - e.t_wall),
                            exemplar=e.ctx.trace_hex if e.ctx else None)
-        # hot-value cache plane (the probe that serves cached gets before
-        # the launch): not ported
+        cache = getattr(self._dht, "hotcache", None)
         probe_s = 0.0
-        groups: dict = {}
-        for e in batch:
-            groups.setdefault((e.af, e.k), []).append(e)
-        if self.pipeline_depth <= 1:
+        n_submitted = len(batch)
+        if cache is not None and cache.active():
+            # time the probe ONLY when a cache is actually live — a
+            # cache-off wave would flood the cache_probe histogram
+            # with ~0 samples and bury the real probe's p50
+            t_probe = _time.time()
+            batch = self._serve_cached(batch)
+            probe_s = max(0.0, _time.time() - t_probe)
+            if wf.enabled:
+                wf.observe("cache_probe", probe_s)
+        else:
+            batch = self._serve_cached(batch)
+        if not batch and n_submitted:
+            # the whole wave was served from cache — the device was
+            # (correctly) skipped; the idle gap this opens is a
+            # cache_served bubble, not starvation
+            self.observatory.note_cache_served(t_fill, n_submitted)
+        if batch:
+            groups: dict = {}
+            for e in batch:
+                groups.setdefault((e.af, e.k), []).append(e)
+            if self.pipeline_depth <= 1:
+                for (af, k), entries in groups.items():
+                    self._launch(af, k, entries, wf, t_pick, probe_s, t_fill)
+                return
             for (af, k), entries in groups.items():
-                self._launch(af, k, entries, wf, t_pick, probe_s, t_fill)
-            return
-        for (af, k), entries in groups.items():
-            self._launch_async(af, k, entries, wf, t_pick, probe_s, t_fill)
-        # opportunistic same-pump drain: a wave whose handle is
-        # already materialized (host-scan resolve — the live
-        # protocol regime) scatters now, keeping small-table
-        # latency identical to depth 1.  Never blocks.
-        while self._inflight and self._inflight[0].handle.ready():
-            self._drain_one(wf)
+                self._launch_async(af, k, entries, wf, t_pick, probe_s, t_fill)
+            # opportunistic same-pump drain: a wave whose handle is
+            # already materialized (host-scan resolve — the live
+            # protocol regime) scatters now, keeping small-table
+            # latency identical to depth 1.  Never blocks.
+            while self._inflight and self._inflight[0].handle.ready():
+                self._drain_one(wf)
         if self._inflight:
             self._arm_drain(self._dht.scheduler.time())
+
+    def _serve_cached(self, entries: List[_Entry]) -> List[_Entry]:
+        """The serve-from-cache fast path: ONE batched
+        XOR-compare (``ops/cache_probe.py``) over the wave's
+        targets against the hot-value cache's device id table.  Hits
+        on CACHE-ELIGIBLE entries (pure-get refills — ``cache_cb`` set)
+        are served host-side values and removed from the wave; misses
+        and ineligible entries fall through unchanged.  Served targets
+        still feed the keyspace observatory (source="cache") — a
+        cache-served key must stay in the hot window, or it would decay
+        out, be evicted, and thrash back in."""
+        cache = getattr(self._dht, "hotcache", None)
+        if cache is None or not cache.active():
+            return entries
+        eligible = [e.cache_cb is not None for e in entries]
+        if not any(eligible):
+            return entries
+        served = cache.probe_wave([e.target for e in entries], eligible)
+        if not any(v is not None for v in served):
+            return entries
+        ks = getattr(self._dht, "keyspace", None)
+        if ks is not None:
+            ks.observe_hashes(
+                [e.target for e, v in zip(entries, served)
+                 if v is not None], source="cache")
+        remaining: List[_Entry] = []
+        for e, vals in zip(entries, served):
+            if vals is None:
+                remaining.append(e)
+                continue
+            try:
+                e.cache_cb(vals)
+            except Exception:
+                log.exception("cache-serve callback failed")
+        return remaining
 
     def _launch(self, af: int, k: int, entries: List[_Entry],
                 wf=None, t_pick: "float | None" = None,
@@ -553,14 +630,20 @@ class WaveBuilder:
                  t_avail: float, slot: int, dispatch_s: float = 0.0,
                  obs_seq: int = -1) -> None:
         """Fan a wave's results out to the carried ops' callbacks, with
-        all the per-wave bookkeeping (metrics, waterfall
+        all the per-wave bookkeeping (metrics, keyspace, waterfall
         stages, trace spans) — shared verbatim by the synchronous
         depth-1 launch and the pipelined drain, so the two paths cannot
         diverge.  ``t_avail`` is when results materialized (launch end
         / consume end): the per-op scatter_back slices start there."""
         self.waves += 1
         self._m_waves.inc()
-        # keyspace observatory plane (the wave's targets): not ported
+        # keyspace observatory: the wave's [Q] target ids feed the
+        # device count-min sketch + keyspace histogram in ONE batched
+        # scatter-add per wave (never reads the device back; buffered
+        # stored-key puts ride along)
+        ks = getattr(self._dht, "keyspace", None)
+        if ks is not None:
+            ks.observe_hashes([e.target for e in entries])
         self._m_occupancy.observe(len(entries))
         for e in entries:
             self._m_queue_s.observe(max(0.0, t_dispatch - e.t_wall))

@@ -9,9 +9,9 @@ the JAX package's ``Dht``.
   draws its refresh targets from jax.random in one and torch in the
   other), so the ops' results are compared: put/get/query outcomes,
   the values and fields found, listener deliveries and expiry pushes,
-  who holds a value.  The JAX nodes run with the planes the port does
-  not carry turned off, which the JAX package pins as result-identical
-  to its defaults.
+  who holds a value.  Both run at their defaults, planes on; the JAX
+  nodes turn off only the resharding plane, which the port does not
+  carry (the JAX package pins its off state as result-identical).
 - A mixed cluster of port and JAX nodes round-trips put → get and
   put → listen in both directions.
 - ``ingest_pipeline_depth`` 1 ≡ 2 ≡ ``ingest_batching="off"`` on the
@@ -70,15 +70,11 @@ def _mods(pkg: str) -> dict:
 
 
 def _jax_planes_off() -> dict:
-    """The JAX Config knobs that turn off the planes the port leaves
-    out (keyspace, hot cache, resharding, batched listeners)."""
-    from opendht_tpu.hotcache import HotCacheConfig
-    from opendht_tpu.keyspace import KeyspaceConfig
+    """The JAX Config knob that turns off the one plane the port leaves
+    out (load-aware resharding); every other plane stays at its JAX
+    default, on."""
     from opendht_tpu.reshard import ReshardConfig
-    return {"keyspace": KeyspaceConfig(enabled=False),
-            "cache": HotCacheConfig(enabled=False),
-            "reshard": ReshardConfig(enabled=False),
-            "listen_batching": "off"}
+    return {"reshard": ReshardConfig(enabled=False)}
 
 
 class Net:
@@ -691,14 +687,25 @@ def test_resolve_mesh_t_2_raises():
     assert dht.last_resolve_shard_t == 1
 
 
-@pytest.mark.parametrize("field", ["keyspace", "cache", "reshard",
-                                   "listeners", "listen_batching",
-                                   "chaos_enabled"])
+@pytest.mark.parametrize("field", ["reshard"])
 def test_left_out_config_fields_raise(field):
     from opendht_tpu.runtime import Config as JConfig
     assert field in JConfig.__dataclass_fields__
     with pytest.raises(TypeError):
         Config(**{field: getattr(JConfig(), field)})
+
+
+@pytest.mark.parametrize("field", ["keyspace", "cache", "listeners",
+                                   "listen_batching", "chaos_enabled"])
+def test_plane_config_fields_take_the_jax_defaults(field):
+    """The planes' fields are back, at the JAX defaults (all on but
+    chaos)."""
+    import dataclasses
+    from opendht_tpu.runtime import Config as JConfig
+    port, jax_ = getattr(Config(), field), getattr(JConfig(), field)
+    if dataclasses.is_dataclass(port):
+        port, jax_ = dataclasses.asdict(port), dataclasses.asdict(jax_)
+    assert port == jax_
 
 
 @pytest.mark.parametrize("field", ["health", "history"])

@@ -283,12 +283,11 @@ SIGNALS = ("_connectivity", "_ingest_queue", "_stale_buckets",
 
 
 def test_node_health_signals_agree_on_a_port_and_a_jax_node():
-    """The per-node signals of a fresh node of each package: the same
-    values, the keyspace and hot-cache signals absent (unknown) on both
-    (the JAX node with those planes off, the port without them)."""
-    from opendht_tpu.hotcache import HotCacheConfig
+    """The per-node signals of a fresh node of each package, both at
+    their defaults (planes on; the JAX node's resharding off): the same
+    values, the keyspace and hot-cache signals unknown on both (nothing
+    observed, no cache window yet)."""
     from opendht_tpu.infohash import InfoHash as JHash
-    from opendht_tpu.keyspace import KeyspaceConfig
     from opendht_tpu.reshard import ReshardConfig
     from opendht_tpu.runtime import Config as JConfig, Dht as JDht
     from opendht_tpu_torch.infohash import InfoHash
@@ -296,9 +295,7 @@ def test_node_health_signals_agree_on_a_port_and_a_jax_node():
 
     jd = JDht(lambda d, a: 0, JConfig(
         node_id=JHash.get("health-node"), ingest_queue_max=8,
-        keyspace=KeyspaceConfig(enabled=False),
-        cache=HotCacheConfig(enabled=False),
-        reshard=ReshardConfig(enabled=False), listen_batching="off"),
+        reshard=ReshardConfig(enabled=False)),
         has_v6=False)
     pd = Dht(lambda d, a: 0, Config(node_id=InfoHash.get("health-node"),
                                     ingest_queue_max=8),

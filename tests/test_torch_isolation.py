@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``opendht_tpu_torch``
 pulls in neither JAX, ``opendht_tpu`` nor the ``msgpack`` wheel (the port
 carries its own codec), and every module but ``crypto`` leaves out
-``cryptography`` and ``argon2``; a signed put through the port's
+``cryptography`` and ``argon2``; nor does a node whose planes (keyspace
+sketch, hot-value cache, listener table) are at work; a signed put through the port's
 ``SecureDht`` loads no JAX module; its entry points called with
 ``device=None`` on a machine without a card raise instead of running on
 the CPU, and ``chip_smoke.py`` fails without a card and rehearses every
@@ -53,8 +54,56 @@ def test_importing_the_port_loads_no_jax():
     assert set(res["modules"]) == want
     assert "opendht_tpu_torch.ops.window_select" in want
     for mod in ("_msgpack", "utils", "net.engine", "runtime.dht",
-                "runtime.wave_builder", "runtime.live_search", "waterfall"):
+                "runtime.wave_builder", "runtime.live_search", "waterfall",
+                "keyspace", "hotcache", "listeners", "chaos", "ops.sketch",
+                "ops.cache_probe", "ops.listener_match"):
         assert f"opendht_tpu_torch.{mod}" in want
+
+
+_PLANES_PROBE = """
+import json, sys
+from opendht_tpu_torch.core.value import Value
+from opendht_tpu_torch.infohash import InfoHash
+from opendht_tpu_torch.runtime import Config, Dht
+from opendht_tpu_torch.scheduler import Scheduler
+from opendht_tpu_torch.sockaddr import SockAddr
+clock = [0.0]
+dht = Dht(lambda d, a: 0, Config(), Scheduler(clock=lambda: clock[0]),
+          has_v6=False, device="cpu")
+for i in range(12):
+    dht.insert_node(InfoHash.get("peer-%d" % i),
+                    SockAddr("127.0.0.2", 4000 + i))
+key = InfoHash.get("planes-probe")
+heard = []
+dht.listen(key, lambda vals, exp: heard.extend(vals) or True)
+dht.storage_store(key, Value(b"v", value_id=1), 0.0)
+for _ in range(60):
+    dht.get(key, lambda vals: True)
+    clock[0] += 0.05
+    dht.periodic(None, None)
+print(json.dumps({
+    "heard": len(heard),
+    "observed": dht.keyspace.snapshot()["observed_total"],
+    "cached": dht.hotcache.snapshot()["occupancy"],
+    "listeners": dht.listener_table.snapshot()["matches"],
+    "bad": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "opendht_tpu",
+                                         "msgpack", "cryptography",
+                                         "argon2"))}))
+"""
+
+
+def test_a_node_with_its_planes_at_work_loads_no_jax_module():
+    """A default node whose keyspace sketch, hot-value cache and listener
+    table all run loads neither JAX, ``opendht_tpu`` nor the crypto
+    wheels."""
+    out = subprocess.run([sys.executable, "-c", _PLANES_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    assert res["heard"] == 1 and res["listeners"] == 1
+    assert res["observed"] > 0 and res["cached"] == 1
 
 
 _NO_CRYPTO_PROBE = """
@@ -211,14 +260,15 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
                       "--churn-q", "256", "--churn-dcap", "2048",
                       "--churn-e", "64", "--churn-table-n", "20000",
                       "--serve-n", "8192", "--serve-q", "16",
-                      "--serve-gets", "100")
+                      "--serve-gets", "100", "--planes-keys", "200",
+                      "--planes-gets", "600")
     assert out.returncode == 3, out.stderr[-2000:]
     lines = [json.loads(l) for l in out.stdout.splitlines()
              if l.startswith("{")]
     phases = [l.get("phase") for l in lines]
     assert phases[:-1] == ["device", "main", "parity", "timing", "profile",
                            "memory", "search", "maintenance", "churn",
-                           "serve", "runner"]
+                           "serve", "runner", "planes"]
     search = lines[phases.index("search")]
     assert search["lookups"] == 2 * 256
     assert search["checks"]["goldens"] == ["lut_l5", "lut_l2", "exact_l5"]
@@ -249,6 +299,21 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
             runner["ingest_wave_failures"]) == (0, 0, 0)
     assert runner["datagrams_sent"]["off_loopback"] == 0
     assert runner["crypto_modules"] == runner["live_runner_threads"] == []
+    planes = lines[phases.index("planes")]
+    assert planes["puts"]["keys"] == 200
+    assert planes["gets"]["gets"] == 600
+    assert planes["gets"]["cache"]["hits"] > 0
+    assert planes["gets"]["sketch"]["equal_to_numpy"]
+    assert planes["gets"]["cache_off_replay"]["equal"]
+    assert planes["listeners"]["overflow"] == 64
+    assert planes["listeners"]["listener_match_calls"] >= 1
+    assert all(planes["planes_enabled"].values())
+    assert (planes["error_records"], planes["planes_dark_records"],
+            planes["ingest_wave_failures"]) == (0, 0, 0)
+    assert set(planes["ops"]) == {
+        "listener_match_S64_L1024", "listener_match_S64_L8192",
+        "cache_probe_Q64_C64", "sketch_update_Q64", "sketch_query_Q64",
+        "sketch_decay"}
     kernels = lines[-1]["kernels"]
     assert [k["name"] for k in kernels] == ["window_select",
                                             "lex_topk_select"]

@@ -241,15 +241,24 @@ def test_proxy_is_not_ported():
 
 
 def test_planes_not_ported_answer_as_absent_and_the_rest_report():
-    """The accessors of the planes the port does not carry give the JAX
-    runner's answer for an absent plane; health, history, the bundle,
-    the waterfall, the pipeline and the peers report."""
+    """The accessor of the plane the port does not carry (resharding)
+    gives the JAX runner's answer for an absent plane; the planes the
+    port carries (keyspace, cache, listener table) report as the JAX
+    runner's do, with the same keys; health, history, the bundle, the
+    waterfall, the pipeline and the peers report."""
+    from opendht_tpu.hotcache import HotValueCache as JCache
+    from opendht_tpu.keyspace import KeyspaceObservatory as JObs
+    from opendht_tpu.listeners import ListenerTable as JTable
     r = DhtRunner()
     r.run(0, **CPU)
     try:
-        for get in (r.get_keyspace, r.get_reshard, r.get_cache,
-                    r.get_listeners):
-            assert get() == {"enabled": False}
+        assert r.get_reshard() == {"enabled": False}
+        for get, jax_plane in ((r.get_keyspace, JObs()),
+                               (r.get_cache, JCache()),
+                               (r.get_listeners, JTable())):
+            snap = get()
+            assert snap["enabled"] is True
+            assert set(snap) == set(jax_plane.snapshot())
         # a lone node is disconnected: its first health tick (1 s)
         # turns the verdict from unknown to unhealthy
         assert wait_for(lambda: r.get_health()["verdict"] == "unhealthy")
@@ -257,8 +266,8 @@ def test_planes_not_ported_answer_as_absent_and_the_rest_report():
         assert r.get_history()["enabled"] is True
         b = r.dump_bundle()
         assert b["kernels"] == {}
-        assert b["keyspace"] == b["cache"] == b["listeners"] == \
-            {"enabled": False}
+        assert b["keyspace"]["enabled"] and b["cache"]["enabled"]
+        assert b["listeners"]["enabled"]
         assert b["node_id"] == r.get_node_id().hex()
         assert {"stages", "budgets"} <= set(r.get_profile())
         assert r.get_pipeline()["enabled"] is True
@@ -337,16 +346,11 @@ def test_the_runner_serves_its_table_through_the_device_route():
 
 # --------------------------------------------- a mixed JAX / port cluster
 def _jax_planes_off() -> dict:
-    """The JAX Config knobs that turn off the planes the port leaves
-    out; besides, their kernels would compile on the JAX node's DHT
-    thread in the middle of the exchange."""
-    from opendht_tpu.hotcache import HotCacheConfig
-    from opendht_tpu.keyspace import KeyspaceConfig
+    """The JAX Config knob that turns off the one plane the port leaves
+    out (load-aware resharding); the other planes stay on, as on the
+    port's nodes."""
     from opendht_tpu.reshard import ReshardConfig
-    return {"keyspace": KeyspaceConfig(enabled=False),
-            "cache": HotCacheConfig(enabled=False),
-            "reshard": ReshardConfig(enabled=False),
-            "listen_batching": "off"}
+    return {"reshard": ReshardConfig(enabled=False)}
 
 
 def _jax_runner_mods():
@@ -416,9 +420,7 @@ def test_secure_dht_from_jax_answers_as_the_original():
     certificates, and the same reply bytes to a client's find and get."""
     from opendht_tpu import crypto as jcrypto
     from opendht_tpu.core.value import Query as JQuery, Value as JValue
-    from opendht_tpu.hotcache import HotCacheConfig
     from opendht_tpu.infohash import InfoHash as JHash
-    from opendht_tpu.keyspace import KeyspaceConfig
     from opendht_tpu.net.engine import (EngineCallbacks as JCbs,
                                         NetworkEngine as JEngine)
     from opendht_tpu.reshard import ReshardConfig
@@ -440,10 +442,8 @@ def test_secure_dht_from_jax_answers_as_the_original():
     random.seed(3)
     inner = JDht(to_client("jax"),
                  JConfig(node_id=secure_node_id(ident.second),
-                         keyspace=KeyspaceConfig(enabled=False),
-                         cache=HotCacheConfig(enabled=False),
-                         reshard=ReshardConfig(enabled=False),
-                         listen_batching="off"), has_v6=False)
+                         reshard=ReshardConfig(enabled=False)),
+                 has_v6=False)
     src = JSecure(inner, ident)
     src.register_certificate(other.second)
     ids = np.random.default_rng(4).integers(0, 2 ** 32, size=(200, 5),

@@ -157,13 +157,9 @@ def _mods(pkg):
 
 
 def _jax_planes_off() -> dict:
-    from opendht_tpu.hotcache import HotCacheConfig
-    from opendht_tpu.keyspace import KeyspaceConfig
+    """Only the resharding plane, which the port leaves out."""
     from opendht_tpu.reshard import ReshardConfig
-    return {"keyspace": KeyspaceConfig(enabled=False),
-            "cache": HotCacheConfig(enabled=False),
-            "reshard": ReshardConfig(enabled=False),
-            "listen_batching": "off"}
+    return {"reshard": ReshardConfig(enabled=False)}
 
 
 class Net:
