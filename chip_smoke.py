@@ -4,7 +4,8 @@
     python3 chip_smoke.py                 # the full run on the card
     python3 chip_smoke.py --cpu --n 20000 --q 512 \
         --search-n 20000 --search-q 256 --search-waves 2 \
-        --serve-n 20000 --serve-q 64 --serve-gets 200      # rehearsal
+        --serve-n 20000 --serve-q 64 --serve-gets 200 \
+        --scale-n 20000 --scale-q 256                      # rehearsal
 
 Phases, one JSON line each:
 
@@ -178,12 +179,46 @@ Phases, one JSON line each:
              on any ERROR record, ingest wave failure or plane gone dark.
              (--planes-keys / --planes-gets size it, --serve-n the node.)
 
+14. scale  — scale-out on the card: the t-sharded table on a virtual
+             mesh of t shards on cuda:0 (parallel/), the mesh/layout
+             resolve and the resharder.  (a) BASELINE config 5's
+             one-chip form, not cut: 64,000,000 ids from
+             np.random.default_rng(6) (the port cannot draw JAX's
+             PRNGKey(6) stream) sorted on the card,
+             expand_table_chunked(chunks=8, limbs=2), the LUT at
+             default_lut_bits(N), expanded_topk(select="fast2",
+             planes=2, lut_steps=0, k=8) over 65,536 queries: ms per call
+             as the slope of 4- and 32-call chains (CUDA events),
+             lookups/s, the certified fraction and peak memory; 256
+             sampled queries held to an exact xor_topk scan.  (b) The
+             merge model: select_topk over [65,536, n_t·8] at n_t = 2, 4,
+             8 (CUDA-event medians), wire bytes n_t·8·24 per query.  (c)
+             sharded_sort_table → sharded_expand_table →
+             sharded_window_lookup over the same 64M ids at t = 2, 4, 8,
+             expanded (window_select per shard) and window
+             (lex_topk_select per shard) routes, each equal to the
+             unsharded lookup_topk: ms per call, kernel launches per call
+             (one per shard), the profiler's kernels and device ms; both
+             kernels held to their plain versions on shard 0's inputs at
+             t=8.  (d) tp_simulate_lookups at t=4 over --search-n ids, one
+             wave of --search-q targets at config 3's settings, equal to
+             simulate_lookups; both waves' ms.  (e) the live node's
+             table (--serve-n ids): NodeTable.find_closest(mesh=,
+             layout=) on 1,024 targets with a hot reshard layout, one
+             wave launched before the swap and one after, both equal to
+             the unsharded answer; the rows each shard rescans; a Dht
+             with resolve_mesh_t=2 on one card logs and serves
+             unsharded; the default node's resharder swapping in virtual
+             mode launches no kernel and no copy (profiler).
+             (--scale-n / --scale-q size (a)-(c).)
+
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failure raises (nonzero exit, no ok line).  Without a card it exits
 nonzero before any result; ``--cpu`` rehearses every phase on the host
 with the plain versions and also ends without the ok line, as does a
 partial run (``--phases churn``, ``--phases serve``, ``--phases
-runner`` or ``--phases planes``: phases 1-7, then only that phase).
+runner``, ``--phases planes`` or ``--phases scale``: phases 1-7, then
+only that phase).
 """
 
 from __future__ import annotations
@@ -192,6 +227,7 @@ import argparse
 import hashlib
 import json
 import logging
+import socket
 import statistics
 import subprocess
 import sys
@@ -2513,6 +2549,374 @@ def planes_phase(args, dev, card, sync) -> int:
                               for v in per_wave.values())
 
 
+# ---------------------------------------------------------------------------
+# 14. scale
+# ---------------------------------------------------------------------------
+
+def slope_ms(fn, *, r1: int = 4, r2: int = 32, cuda: bool = True) -> float:
+    """Per-call time as the slope of back-to-back call chains: CUDA events
+    around r1 and r2 calls, (t(r2) - t(r1)) / (r2 - r1), so constant
+    costs cancel (bench.py's chain_slope method).  Host clock with a
+    synchronize on the CPU rehearsal."""
+    import torch
+    fn()
+
+    def chain(r):
+        if not cuda:
+            s = time.perf_counter()
+            for _ in range(r):
+                fn()
+            return (time.perf_counter() - s) * 1e3
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(r):
+            fn()
+        t1.record()
+        t1.synchronize()
+        return t0.elapsed_time(t1)
+    return (chain(r2) - chain(r1)) / (r2 - r1)
+
+
+def exact_topk_rows(sorted_ids, n: int, queries, k: int) -> np.ndarray:
+    """Exact k XOR-closest sorted rows of each query, through ``xor_topk``
+    over a superset of the answer: the rows whose top distance limb is at
+    most the k-th smallest top limb (every row of the exact top-k is
+    among them).  One query at a time, so a 64M-row table never meets a
+    [Q, N] buffer."""
+    import torch
+    from opendht_tpu_torch.ops.ids import FLIP
+    from opendht_tpu_torch.ops.xor_topk import xor_topk
+    col0 = sorted_ids[:n, 0].contiguous()
+    out = []
+    for q in queries:
+        d0 = col0 ^ (q[0] ^ FLIP)          # key of each row's top limb
+        thr = torch.topk(d0, k, largest=False).values.max()
+        cand = torch.nonzero(d0 <= thr).reshape(-1)
+        _, i = xor_topk(q[None], sorted_ids[cand], k=k)
+        out.append(cand[i[0].long()])
+    return torch.stack(out).cpu().numpy()
+
+
+def scale_phase(args, dev, card, sync) -> dict:
+    """Scale-out on the card (see the module docstring, phase 14).
+    Returns each kernel's launches in the phase's counted runs and its
+    max_abs_err against its plain version on this path's inputs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from opendht_tpu_torch import NodeTable, InfoHash
+    from opendht_tpu_torch import parallel as PL
+    from opendht_tpu_torch.core import search as SE
+    from opendht_tpu_torch.ops import ids as IK
+    from opendht_tpu_torch.ops import sorted_table as ST
+    from opendht_tpu_torch.ops.lex_select import (lex_topk_select,
+                                                   lex_topk_select_plain)
+    from opendht_tpu_torch.ops.window_select import (window_select,
+                                                      window_select_plain)
+    from opendht_tpu_torch.ops.xor_topk import select_topk
+    from opendht_tpu_torch.parallel.partition import solve_shard_edges
+    from opendht_tpu_torch.reshard import ReshardConfig, ReshardLayout
+    from opendht_tpu_torch.runtime import Config, Dht
+    cuda = dev.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+
+    def timed(fn, **kw):
+        # the host rehearsal times each call once: its times are no
+        # device metric, and the rehearsal must stay short
+        return median_ms(fn, cuda=cuda, **(kw if cuda else
+                                           {"reps": 1, "warmup": 0}))
+    N, Q, K = args.scale_n, args.scale_q, 8
+    launches = {"window_select": 0, "lex_topk_select": 0}
+    rec = {"phase": "scale", **card, "n": N, "q": Q, "k": K}
+    if cuda:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+
+    # (a) BASELINE config 5, one-chip form: 64M ids sorted, the 2-plane
+    # expansion built in 8 chunks, the LUT, fast2 over 65,536 queries
+    rng = np.random.default_rng(6)
+    t0 = time.perf_counter()
+    table = IK.to_keys(rng.integers(0, 2**32, size=(N, 5), dtype=np.uint32),
+                       dev)
+    qk = IK.to_keys(rng.integers(0, 2**32, size=(Q, 5), dtype=np.uint32),
+                    dev)
+    sync()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sorted_ids, perm, n_valid = ST.sort_table(table)
+    n = int(n_valid)
+    sync()
+    sort_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exp2 = ST.expand_table_chunked(sorted_ids, chunks=8, limbs=2)
+    lut = ST.build_prefix_lut(sorted_ids, n, bits=ST.default_lut_bits(N))
+    sync()
+    expand_s = time.perf_counter() - t0
+
+    def config5():
+        return ST.expanded_topk(sorted_ids, exp2, n, qk, k=K, select="fast2",
+                                lut=lut, lut_steps=0, planes=2)
+    _, idx5, cert5 = config5()
+    c5_ms = slope_ms(config5, cuda=cuda, **({} if cuda else
+                                            {"r1": 1, "r2": 2}))
+    peak5 = (torch.cuda.max_memory_allocated() - mem0) if cuda \
+        else "not measured"
+    sample = np.sort(rng.choice(Q, size=min(256, Q), replace=False))
+    want = exact_topk_rows(sorted_ids, n, qk[torch.from_numpy(sample)
+                                             .to(dev)], K)
+    got = idx5[torch.from_numpy(sample).to(dev)].cpu().numpy()
+    c_s = cert5[torch.from_numpy(sample).to(dev)].cpu().numpy()
+    require(np.array_equal(got[c_s], want[c_s]),
+            "config 5: every certified sampled row == the exact scan")
+    rec["config5"] = {
+        "ms": c5_ms, "lookups_per_s": Q / (c5_ms / 1e3),
+        "certified_fraction": float(cert5.float().mean()),
+        "sample_exact": int(c_s.sum()), "sample": int(len(sample)),
+        "sample_uncertified_differing": int(
+            (~(got == want).all(axis=1) & ~c_s).sum()),
+        "peak_bytes": peak5,
+        "ids_bytes": N * 20, "expansion_bytes": exp2.numel() * 4,
+        "seconds": {"generate_and_upload": gen_s, "sort": sort_s,
+                    "expand_and_lut": expand_s},
+        # fast2 over a 2-plane row: the sort keys read per query
+        "bytes": Q * (2 * ST._EROW * 4 + 5 * 4 + K * 4),
+        "method": "slope of 4- and 32-call chains, CUDA events"}
+    del exp2, lut, idx5, cert5
+
+    # (b) the merge model: the [Q, n_t·k] re-sort of the per-shard winners
+    merge = {}
+    for n_t in (2, 4, 8):
+        g = torch.Generator(device=dev).manual_seed(60 + n_t)
+        cd = torch.randint(-2**31, 2**31 - 1, (Q, n_t * K, 5),
+                           dtype=torch.int32, device=dev, generator=g)
+        ci = torch.randint(0, N, (Q, n_t * K), dtype=torch.int32,
+                           device=dev, generator=g)
+        inv = torch.zeros_like(ci)
+        merge[n_t] = {"ms": timed(lambda: select_topk(cd, ci, inv, K)),
+                      "wire_bytes_per_query": n_t * K * 24}
+        del cd, ci, inv
+    rec["merge_model"] = merge
+
+    # (c) the sharded resolve on a virtual mesh of t shards on this
+    # device, both routes, each == the unsharded lookup_topk
+    ref_d, ref_i, _ = ST.lookup_topk(sorted_ids, n, qk, k=K, window=128)
+    ref_rows = torch.where(ref_i >= 0, perm[ref_i.clamp(min=0).long()], -1)
+    unsharded_ms = timed(
+        lambda: ST.lookup_topk(sorted_ids, n, qk, k=K, window=128), reps=5)
+    del sorted_ids, perm
+    mesh_rec = {}
+    err = {"window_select": 0, "lex_topk_select": 0}
+    for t in (2, 4, 8):
+        mesh = PL.make_mesh(t, q=1, t=t, devices=dev)
+        sync()
+        t0 = time.perf_counter()
+        ps, pp, pn = PL.sharded_sort_table(mesh, table)
+        px, plut = PL.sharded_expand_table(
+            mesh, ps, pn, bits=ST.default_lut_bits(N // t))
+        sync()
+        build_s = time.perf_counter() - t0
+        routes = {}
+        for route, kw, kern in (
+                ("expanded", dict(expanded=px, lut=plut), window_select),
+                ("window", dict(window=128), lex_topk_select)):
+            def call(kw=kw):
+                return PL.sharded_window_lookup(mesh, qk, ps, pp, pn, k=K,
+                                                **kw)
+            launch = PL.sharded_window_launch(mesh, qk, ps, pp, pn, k=K,
+                                              **kw)
+            unc = sum(int((~o[2]).sum()) for o in launch.outs[0])
+            launch.finish()
+            window_select.launches = 0
+            lex_topk_select.launches = 0
+            d, r = call()
+            sync()
+            per_call = kern.launches
+            launches[kern.__name__] += per_call
+            require(torch.equal(d, ref_d) and torch.equal(r, ref_rows),
+                    f"t={t} {route}: sharded == unsharded lookup_topk")
+            if cuda:
+                require(per_call == t, f"t={t} {route}: one "
+                        f"{kern.__name__} launch per shard ({per_call})")
+            with profile(activities=acts) as prof:
+                call()
+                sync()
+            routes[route] = {"ms": timed(call, reps=5),
+                             "kernel_launches_per_call": per_call,
+                             "uncertified_rows": unc,
+                             **device_totals(prof, cuda)}
+        mesh_rec[t] = {"build_s": build_s, **routes}
+        if t == 8:
+            # the kernels against their plain versions on shard 0's own
+            # inputs at this path's shapes
+            s0, x0 = ps.shard(0, 0), px.shard(0, 0)
+            n0 = pn.shard(0, 0)[0]
+            j, start = ST.expanded_window(s0, x0, n0, qk,
+                                          lut=plut.shard(0, 0)[0])
+            q8 = torch.nn.functional.pad(qk, (0, 3))
+            bounds = torch.clamp(n0 - start, 0, 192)[:, None] \
+                .expand(-1, 8).contiguous()
+            got = window_select(x0, q8, bounds, k=K, row_index=j)
+            sync()
+            err["window_select"] = max_abs_err(got, window_select_plain(
+                x0, q8, bounds, k=K, row_index=j))
+            dist_w, inv_w, _, _ = ST.window_candidates(s0, n0, qk,
+                                                       window=128)
+            got = lex_topk_select(dist_w, inv_w, k=K)
+            sync()
+            err["lex_topk_select"] = max_abs_err(got, lex_topk_select_plain(
+                dist_w, inv_w, k=K))
+            del j, start, q8, bounds, dist_w, inv_w, got
+        del ps, pp, pn, px, plut
+    require(err["window_select"] == 0 and err["lex_topk_select"] == 0,
+            "the kernels == their plain versions on a shard's inputs")
+    rec["virtual_mesh"] = {**mesh_rec, "unsharded_window_ms": unsharded_ms,
+                           "max_abs_err": err}
+    del table, ref_d, ref_i, ref_rows
+
+    # (d) the table-parallel engine at t=4 over config 3's table, one
+    # wave, == simulate_lookups
+    rng3 = np.random.default_rng(args.seed + 3)
+    ids3 = IK.to_keys(rng3.integers(0, 2**32, size=(args.search_n, 5),
+                                    dtype=np.uint32), dev)
+    tgt3 = IK.to_keys(rng3.integers(0, 2**32, size=(args.search_q, 5),
+                                    dtype=np.uint32), dev)
+    s3, _p3, nv3 = ST.sort_table(ids3)
+    del ids3, _p3
+    n3 = int(nv3)
+    lut3 = ST.build_prefix_lut(s3, n3, bits=ST.default_lut_bits(s3.shape[0]))
+    mesh4 = PL.make_mesh(4, q=1, t=4, devices=dev)
+    state = PL.shard_table_state(mesh4, s3, n3)
+
+    def tp_wave():
+        return PL.tp_simulate_lookups(mesh4, targets=tgt3, state=state,
+                                      seed=args.seed, **CONFIG3)
+
+    def single_wave():
+        return SE.simulate_lookups(s3, n3, tgt3, device=dev, lut=lut3,
+                                   seed=args.seed, **CONFIG3)
+    require(same_outputs(outputs_np(tp_wave()), outputs_np(single_wave())),
+            "tp_simulate_lookups (t=4) == simulate_lookups")
+    rec["tp_engine"] = {
+        "n": args.search_n, "q": args.search_q, "t": 4,
+        "wave_ms": timed(tp_wave, reps=3, warmup=1),
+        "unsharded_wave_ms": timed(single_wave, reps=3, warmup=1),
+        "state_bytes_per_shard": state.table_bytes_per_shard()}
+    del s3, lut3, state, tgt3
+
+    # (e) the node's mesh/layout resolve on the live node's table, a
+    # layout swap between launch and consume
+    rng_l, ids_l, _ = live_node_data(args)
+    nt = NodeTable(InfoHash(bytes(20)), device=dev)
+    nt.bulk_load(ids_l, now=0.0)
+    snap = nt.snapshot(0.0)
+    # 1,024 targets: each shard rescans the ~3/4 of them outside its range
+    tq = rng_l.integers(0, 2**32, size=(min(1024, Q), 5), dtype=np.uint32)
+    want_rows, want_dist = nt.find_closest(tq, k=K, now=0.0)
+    loads = np.zeros(256, np.int64)
+    loads[:32] = 1000                     # traffic on the low 1/8 ring
+    lay = ReshardLayout(gen=1, t=4,
+                        edges=tuple(float(e) for e in solve_shard_edges(
+                            loads, 4, load_weight=0.9)),
+                        bin_loads=loads, load_weight=0.9)
+    lex_topk_select.launches = 0
+    pl_a = nt.find_closest_launch(tq, k=K, now=0.0, mesh=mesh4)
+    placed_a = snap._tp_state[2]
+    pl_b = nt.find_closest_launch(tq, k=K, now=0.0, mesh=mesh4, layout=lay)
+    swapped = snap._tp_state[2] is not placed_a
+    ra, rb = pl_a.consume(), pl_b.consume()
+    sync()
+    layout_launches = lex_topk_select.launches
+    launches["lex_topk_select"] += layout_launches
+    if cuda:
+        require(layout_launches == 2 * 4, "one lex_topk_select launch per "
+                f"shard of each wave ({layout_launches})")
+    require(swapped, "the layout rebuilt the snapshot's shards")
+    for name, (r, d) in (("in flight", ra), ("after swap", rb)):
+        require(np.array_equal(r, want_rows) and np.array_equal(d, want_dist),
+                f"layout resolve ({name}) == unsharded find_closest")
+    bnd = snap.reshard_boundary_rows(lay, 4)
+    unc = {}
+    for name, layout in (("uniform", None), ("layout", lay)):
+        placed, _ = snap._shard_state(mesh4, layout)
+        probe = PL.sharded_window_launch(
+            mesh4, IK.to_keys(tq, dev), placed["sorted_ids"],
+            placed["perm"], placed["n_valid"], k=K)
+        unc[name] = [int((~o[2]).sum()) for o in probe.outs[0]]
+        probe.finish()
+    rec["node_layout"] = {
+        # rows each shard rescans exactly (a query outside a shard's
+        # range fails that shard's window certificate)
+        "uncertified_rows_per_shard": unc,
+        "rows": len(ids_l), "q": len(tq),
+        "boundary_rows": [int(b) for b in bnd],
+        "uniform_rows": [-(-snap.n_valid * i // 4) for i in range(1, 4)],
+        "lex_topk_select_launches": layout_launches,
+        "ms": timed(lambda: nt.find_closest(tq, k=K, now=0.0, mesh=mesh4,
+                                            layout=lay), reps=3, warmup=1),
+        "unsharded_ms": timed(lambda: nt.find_closest(tq, k=K, now=0.0),
+                              reps=3, warmup=1)}
+    del nt, snap
+
+    # a node asking for a 2-shard resolve: on one card it logs and
+    # serves unsharded, as the JAX node does with too few devices
+    class Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.msgs = []
+
+        def emit(self, record):
+            self.msgs.append(record.getMessage())
+    wh = Warnings()
+    logging.getLogger("opendht_tpu_torch").addHandler(wh)
+    try:
+        dkw = {} if cuda else {"device": "cpu"}
+        d2 = Dht(lambda data, addr: 0, Config(resolve_mesh_t=2), **dkw)
+        m2 = d2.resolve_mesh()
+        cards = torch.cuda.device_count() if cuda else 0
+        if cuda and cards < 2:
+            require(m2 is None and any("serving the unsharded resolve path"
+                                       in m for m in wh.msgs),
+                    "resolve_mesh_t=2 on one card logs and serves "
+                    "unsharded")
+        ids_d = ids_l[:8192]
+        from opendht_tpu_torch.sockaddr import SockAddr
+        d2.tables[socket.AF_INET].bulk_load(
+            ids_d, d2.scheduler.time(), addrs=SockAddr("127.0.0.2", 4567))
+        tg = [InfoHash(b.tobytes()) for b in IK.ids_to_bytes(tq[:128])]
+        res = d2.find_closest_nodes_batched(tg, socket.AF_INET, K)
+        require(len(res) == len(tg) and all(len(x) == K for x in res),
+                "the resolve_mesh_t=2 node answers")
+        # the default node's resharder: a swap in virtual mode (no mesh)
+        # launches nothing on the device
+        dd = Dht(lambda data, addr: 0, Config(reshard=ReshardConfig(
+            sustain=0.0, min_interval=0.0)), **dkw)
+        dd.keyspace.imbalance = lambda: 3.0
+        with profile(activities=acts) as prof:
+            tick = dd.reshard.tick()
+            sync()
+        require(tick["action"] == "swap" and tick["mode"] == "virtual",
+                "the default node's resharder swaps in virtual mode")
+        tick_dev = device_totals(prof, cuda)
+        if cuda:
+            require(tick_dev["kernels"] == 0 and tick_dev["copies"] == 0,
+                    "a virtual-mode resharder tick launches nothing")
+    finally:
+        logging.getLogger("opendht_tpu_torch").removeHandler(wh)
+    rec["resolve_mesh_t2"] = {"mesh": None if m2 is None else m2.shape,
+                              "cards": cards,
+                              "shard_t": d2.last_resolve_shard_t,
+                              "warnings": [m for m in wh.msgs
+                                           if "resolve" in m]}
+    rec["reshard_tick"] = {"result": {k: v for k, v in tick.items()
+                                      if k != "imbalance_after"},
+                           "device_kernels": tick_dev["kernels"],
+                           "device_copies": tick_dev["copies"]}
+    rec["launches"] = dict(launches)
+    emit(rec)
+    return launches, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="table ids")
@@ -2543,11 +2947,16 @@ def main(argv=None) -> int:
                     help="keys the planes phase's client puts")
     ap.add_argument("--planes-gets", type=int, default=4096,
                     help="Dht.get calls of the planes phase's Zipf stream")
+    ap.add_argument("--scale-n", type=int, default=64_000_000,
+                    help="ids of the scale phase's config 5 table")
+    ap.add_argument("--scale-q", type=int, default=65_536,
+                    help="queries of the scale phase's lookups")
     ap.add_argument("--phases", default="all",
-                    choices=("all", "churn", "serve", "runner", "planes"),
+                    choices=("all", "churn", "serve", "runner", "planes",
+                             "scale"),
                     help="'all', or 'churn' / 'serve' / 'runner' / "
-                         "'planes' to run the device, build, parity and "
-                         "main phases and then only that phase")
+                         "'planes' / 'scale' to run the device, build, "
+                         "parity and main phases and then only that phase")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on the host with the plain versions "
@@ -2859,6 +3268,12 @@ def main(argv=None) -> int:
     if args.phases in ("all", "planes"):
         # the planes phase's misses launch window_select too
         launches["window_select"] += planes_phase(args, dev, card, sync)
+    if args.phases in ("all", "scale"):
+        # the sharded resolve launches both kernels once per shard
+        scale_launches, scale_err = scale_phase(args, dev, card, sync)
+        for name in launches:
+            launches[name] += scale_launches[name]
+            err[name] = max(err[name], scale_err[name])
 
     kernels = []
     for name, src_line in (("window_select",

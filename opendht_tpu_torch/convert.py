@@ -109,9 +109,9 @@ _CONFIG_FIELDS = ("network", "is_bootstrap", "maintain_storage",
                   "ingest_fill_target", "ingest_deadline",
                   "ingest_queue_max", "ingest_admit_per_sec",
                   "ingest_pipeline_depth", "chaos_enabled",
-                  "listen_batching")
+                  "listen_batching", "resolve_mesh_t")
 #: the planes' config objects, rebuilt field by field as the port's
-_PLANE_CONFIGS = ("keyspace", "cache", "listeners")
+_PLANE_CONFIGS = ("keyspace", "cache", "listeners", "reshard")
 
 
 def _addr(a):
@@ -125,10 +125,9 @@ def dht_from_jax(src, send_fn, scheduler=None, *, device=None):
     liveness columns and address, through :func:`node_table_from_numpy`),
     its write-token secrets (tokens the JAX node handed out stay valid),
     and every stored value (re-stored from its packed bytes with its
-    creation time), then the planes' state (:func:`carry_planes`).  Left
-    behind: bucket replacement candidates, searches, listeners, per-IP
-    quota buckets, the resharding plane and ``resolve_mesh_t`` (the
-    sharded resolve is not ported).  ``scheduler`` should share
+    creation time), then the planes' state (:func:`carry_planes`), and
+    ``resolve_mesh_t``.  Left behind: bucket replacement candidates,
+    searches, listeners and per-IP quota buckets.  ``scheduler`` should share
     ``src``'s clock, since the stored values' times and the planes'
     deadlines are on it."""
     import dataclasses
@@ -180,9 +179,10 @@ def carry_planes(src, dst) -> None:
     cache's entries (values re-packed), id table with its valid mask
     and slots, hot set, freshness tokens and hit window; the listener
     table's rows, valid mask, slots, TTLs, tombstones, overflow and
-    delivery buffer.  Each plane's tick or flush job is moved to the
-    JAX job's time.  Run after the value store is restored (storing
-    feeds the planes)."""
+    delivery buffer; the resharder's layout (generation, edges,
+    ``bin_loads``), sustain latch, last swap and counters.  Each plane's
+    tick or flush job is moved to the JAX job's time.  Run after the
+    value store is restored (storing feeds the planes)."""
     dev = dst.device
     ks, jks = dst.keyspace, src.keyspace
     if jks._sketch is not None:
@@ -245,6 +245,20 @@ def carry_planes(src, dst) -> None:
     if jlt._buf and src._listener_flush_job is not None:
         dst._arm_listener_flush(
             max(0.0, src._listener_flush_job.time - dst.scheduler.time()))
+
+    from .reshard import ReshardLayout
+    rs, jrs = dst.reshard, src.reshard
+    lay = jrs._layout
+    rs._layout = None if lay is None else ReshardLayout(
+        gen=int(lay.gen), t=int(lay.t),
+        edges=tuple(float(e) for e in lay.edges),
+        bin_loads=np.array(lay.bin_loads, np.int64),
+        load_weight=float(lay.load_weight))
+    for name in ("_gen", "_above_since", "_last_swap", "_last_mode",
+                 "_post_imbalance", "_ticks", "_swaps"):
+        setattr(rs, name, getattr(jrs, name))
+    rs._skips = dict(jrs._skips)
+    rs._job = _rearm(jrs._job, dst, rs._job)
 
 
 def _pem_body(pem: bytes) -> bytes:

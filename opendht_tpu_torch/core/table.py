@@ -23,8 +23,16 @@ that landed meanwhile.
 The bucket-maintenance methods (``maintenance_sweep``,
 ``stale_buckets``, ``refresh_targets``, ``network_size_estimate``) run
 ``ops/radix.py`` on the table's device; the reusable maintenance key of
-the JAX package is a ``torch.Generator`` seeded once per table.  The
-mesh/layout (sharded) resolve is not ported.
+the JAX package is a ``torch.Generator`` seeded once per table.
+
+**The sharded resolve.**  ``Snapshot.lookup(mesh=, layout=)`` and
+``NodeTable.find_closest(mesh=, layout=)`` row-shard the snapshot over a
+``parallel.Mesh``'s ``t`` axis (``parallel/sharded.py``
+``sharded_window_launch``: per-shard window top-k with the
+``lex_topk_select`` kernel on the card, one merge), uniformly or at the
+traffic-weighted boundaries of a reshard layout (``reshard.py``).  The
+placed shards are cached per (mesh, layout generation); a wave launched
+before a layout swap keeps the operands and perm map it captured.
 """
 
 from __future__ import annotations
@@ -142,28 +150,43 @@ class Snapshot:
         self.version = version
         self.mask_key = mask_key
         self._expanded = None             # lazy expand_table
+        self._tp_state = None             # lazy (mesh, key, placed, perm)
+        self._reshard_rows = None         # lazy ((gen, t), rows)
 
     @property
     def device(self) -> torch.device:
         return self.sorted_ids.device
 
-    def lookup(self, queries, *, k: int = TARGET_NODES, window: int = 128):
+    def lookup(self, queries, *, k: int = TARGET_NODES, window: int = 128,
+               mesh=None, layout=None):
         """Batched exact k-closest.  queries: uint32 [Q,5] numpy or a key
         tensor on the snapshot's device.  Returns (rows [Q,k] int32, dist
         [Q,k,5] uint32) numpy, -1 / all-ones padded.
 
-        Runs the expanded row-gather route with the ``"auto"`` select
-        (the ``window_select`` kernel on the card); ``window`` is
-        accepted for API symmetry and ignored (the candidate window is
-        the expansion's 192 rows)."""
-        return self.lookup_launch(queries, k=k, window=window).consume()
+        Unsharded, runs the expanded row-gather route with the ``"auto"``
+        select (the ``window_select`` kernel on the card); ``window`` is
+        then ignored (the candidate window is the expansion's 192 rows).
+
+        ``mesh`` (``config.resolve_mesh_t``): a (q=1, t) mesh row-shards
+        the resolve — per-shard ``window``-wide top-k over each shard's
+        contiguous slice of the sorted slab (the ``lex_topk_select``
+        kernel on the card), one merge (parallel/sharded.py).
+        ``layout`` (load-aware resharding): an installed
+        :class:`~opendht_tpu_torch.reshard.ReshardLayout` moves the shard
+        boundaries to traffic-weighted row splits of THIS snapshot.  The
+        results are the same either way."""
+        return self.lookup_launch(queries, k=k, window=window, mesh=mesh,
+                                  layout=layout).consume()
 
     def lookup_launch(self, queries, *, k: int = TARGET_NODES,
-                      window: int = 128) -> PendingLookup:
+                      window: int = 128, mesh=None,
+                      layout=None) -> PendingLookup:
         """Async form of :meth:`lookup`: the lookup is enqueued before this
         returns; the certificate check and fallback wait in ``consume()``."""
         q = queries if isinstance(queries, torch.Tensor) \
             else IK.to_keys(queries, self.device)
+        if mesh is not None and mesh.shape.get("t", 1) > 1:
+            return self._lookup_sharded_launch(mesh, q, k, window, layout)
         if self._expanded is None:
             self._expanded = expand_table(self.sorted_ids)
         dist, idx, cert = lookup_topk(self.sorted_ids, self.n_valid, q, k=k,
@@ -182,6 +205,114 @@ class Snapshot:
             return rows.cpu().numpy().astype(np.int32), IK.from_keys(d)
 
         return PendingLookup(finalize, probe=probe)
+
+    def reshard_boundary_rows(self, layout, n_t: int):
+        """Traffic-weighted interior row boundaries of THIS snapshot for an
+        installed reshard layout — re-derived per snapshot (the layout
+        carries bin loads, not rows, since raw row offsets go stale
+        across rebuilds), cached by ``(layout.gen, t)``.
+
+        Returns ``n_t - 1`` nondecreasing row indices into the valid
+        prefix of the sorted order (parallel/partition.py
+        ``solve_shard_boundaries``).  The per-bin row counts come from one
+        ``searchsorted`` of the 255 bin edges over the sorted top limb, on
+        the device; only the counts are read back."""
+        key = (int(layout.gen), int(n_t))
+        cached = self._reshard_rows
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        from ..parallel.partition import solve_shard_boundaries
+        n = self.n_valid
+        # bin edge b<<24 as a key (signed order = unsigned order)
+        edges = torch.tensor((np.arange(1, 256, dtype=np.int64) << 24)
+                             - (1 << 31), dtype=torch.int32,
+                             device=self.device)
+        counts = torch.searchsorted(self.sorted_ids[:n, 0].contiguous(),
+                                    edges, side="left").cpu().numpy()
+        bin_rows = np.diff(np.concatenate([[0], counts, [n]]))
+        rows = solve_shard_boundaries(
+            bin_rows, layout.bin_loads, n_t,
+            load_weight=layout.load_weight)
+        self._reshard_rows = (key, rows)
+        return rows
+
+    def _shard_state(self, mesh, layout=None):
+        """Row-shard this snapshot's sorted slab over the mesh ``t`` axis
+        ONCE and cache the placed operands; later waves reuse them.
+
+        With a reshard ``layout`` the split is the traffic-weighted one:
+        shard ``i`` owns rows ``[b_i, b_{i+1})`` of the sorted order,
+        realized as equal-capacity slabs (rearranged rows + per-shard
+        widths).  The cache key includes ``layout.gen``: a swap is one
+        attribute write on the DHT loop, the NEXT wave rebuilds here (row
+        movement, never a re-sort), and a wave already in flight keeps
+        the operands and perm map its launch captured.
+
+        Returns ``(placed, perm_map)``: ``perm_map`` is None for the
+        uniform split (global sorted positions map through ``self.perm``)
+        or the slab-position → slab-row map of the weighted one, on the
+        snapshot's device."""
+        st = self._tp_state
+        key = (None if layout is None
+               else (int(layout.gen), int(mesh.shape["t"])))
+        if st is not None and st[0] is mesh and st[1] == key:
+            return st[2], st[3]
+        from ..parallel import partition
+        n_t = int(mesh.shape["t"])
+        n = self.n_valid
+        dev = self.device
+        if layout is not None:
+            bounds, widths, cap = partition.weighted_bounds(
+                self.reshard_boundary_rows(layout, n_t), n, n_t)
+            ids_re = partition.weighted_slabs(self.sorted_ids, bounds,
+                                              widths, cap, IK.FLIP)
+            perm_map = partition.weighted_slabs(self.perm, bounds, widths,
+                                                cap, -1)
+            nv = widths.astype(np.int32)
+            shard_n = cap
+        else:
+            ids_re = self.sorted_ids
+            pad = (-ids_re.shape[0]) % n_t
+            if pad:
+                # pad rows land past the valid prefix (the last shard),
+                # and every shard excludes rows beyond its local n_valid
+                ids_re = torch.cat([ids_re, torch.full(
+                    (pad, IK.N_LIMBS), IK.FLIP, dtype=torch.int32,
+                    device=dev)])
+            shard_n = ids_re.shape[0] // n_t
+            nv = np.clip(n - np.arange(n_t) * shard_n, 0,
+                         shard_n).astype(np.int32)
+            perm_map = None
+        # per-shard LOCAL sorted positions: the sharded lookup offsets
+        # them by the shard base, giving global slab positions that the
+        # perm map turns into slab rows
+        perm_local = torch.arange(shard_n, dtype=torch.int32,
+                                  device=dev).repeat(n_t)
+        placed = partition.shard_put(
+            mesh, {"sorted_ids": ids_re, "perm": perm_local,
+                   "n_valid": torch.from_numpy(nv)},
+            partition.TABLE_AXIS_RULES)
+        self._tp_state = (mesh, key, placed, perm_map)
+        return placed, perm_map
+
+    def _lookup_sharded_launch(self, mesh, q, k: int, window: int,
+                               layout=None) -> PendingLookup:
+        from ..parallel.sharded import sharded_window_launch
+        placed, perm_map = self._shard_state(mesh, layout)
+        launch = sharded_window_launch(
+            mesh, q, placed["sorted_ids"], placed["perm"],
+            placed["n_valid"], k=k, window=window)
+        # captured AT LAUNCH: a reshard swap between launch and consume
+        # must not remap this wave's positions through the new layout
+        perm = self.perm if perm_map is None else perm_map
+
+        def finalize():
+            dist, gpos = launch.finish()
+            gpos = gpos.to(perm.device)
+            rows = torch.where(gpos >= 0, perm[gpos.clamp(min=0).long()], -1)
+            return rows.cpu().numpy().astype(np.int32), IK.from_keys(dist)
+
+        return PendingLookup(finalize, probe=launch.event)
 
 
 class ChurnView:
@@ -376,6 +507,9 @@ class NodeTable:
         self._delta_cap = delta_cap
         self._churn: Optional[ChurnView] = None
         self.compactions = 0              # full re-sorts folding churn
+        #: whether the most recent find_closest ran the t-sharded resolve
+        #: (host scans and churn views reset it)
+        self.last_resolve_sharded = False
         self._ids = np.zeros((capacity, IK.N_LIMBS), dtype=np.uint32)
         self._valid = np.zeros(capacity, dtype=bool)
         self._expired = np.zeros(capacity, dtype=bool)
@@ -844,7 +978,7 @@ class NodeTable:
 
     def find_closest(self, targets, *, k: int = TARGET_NODES,
                      now: Optional[float] = None, mask: str = "reachable",
-                     window: int = 128):
+                     window: int = 128, mesh=None, layout=None):
         """k closest known peers for each target id
         (↔ RoutingTable::findClosestNodes, src/routing_table.cpp:109-150,
         batched over Q targets).
@@ -853,22 +987,38 @@ class NodeTable:
         Returns (rows [Q,k] int32, dist [Q,k,5] uint32) numpy, -1 padded.
         Small tables × small batches take an exact host scan; larger ones
         the device snapshot lookup.  Both are exact and give identical
-        results."""
+        results.  A ``mesh`` (``config.resolve_mesh_t``) row-shards the
+        snapshot resolve over its ``t`` axis (:meth:`Snapshot.lookup`),
+        at a reshard ``layout``'s boundaries when one is given; the churn
+        view and the host scan ignore both (identical results either
+        way)."""
         return self.find_closest_launch(targets, k=k, now=now, mask=mask,
-                                        window=window).consume()
+                                        window=window, mesh=mesh,
+                                        layout=layout).consume()
 
     def find_closest_launch(self, targets, *, k: int = TARGET_NODES,
                             now: Optional[float] = None,
                             mask: str = "reachable",
-                            window: int = 128) -> PendingLookup:
+                            window: int = 128, mesh=None,
+                            layout=None) -> PendingLookup:
         """Async form of :meth:`find_closest`; the host-scan path returns
-        an already-resolved handle."""
+        an already-resolved handle.  ``last_resolve_sharded`` records
+        whether THIS resolve ran sharded (read by
+        ``Dht.find_closest_nodes_launch`` right after the call, on the
+        same thread)."""
         q = _as_limbs(targets).reshape(-1, IK.N_LIMBS)
+        self.last_resolve_sharded = False
         if len(self) <= HOST_SCAN_MAX_ROWS \
                 and q.shape[0] <= HOST_SCAN_MAX_QUERIES:
             return PendingLookup.resolved(
                 *self._find_closest_host(q, k, now, mask))
-        return self.view(now, mask=mask).lookup_launch(q, k=k, window=window)
+        view = self.view(now, mask=mask)
+        if mesh is not None and mesh.shape.get("t", 1) > 1 \
+                and isinstance(view, Snapshot):
+            self.last_resolve_sharded = True
+            return view.lookup_launch(q, k=k, window=window, mesh=mesh,
+                                      layout=layout)
+        return view.lookup_launch(q, k=k, window=window)
 
     def _find_closest_host(self, q: np.ndarray, k: int,
                            now: Optional[float], mask: str):

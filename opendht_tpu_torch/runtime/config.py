@@ -1,14 +1,8 @@
 """Node status, stats and configuration (reference
 include/opendht/callbacks.h:41-117).
 
-A copy of the JAX package's ``runtime/config.py``, every field at its
-JAX default, and ``SecureDhtConfig`` as in JAX, with one field left out:
-``reshard``.  The load-aware resharding plane behind it acts on a
-t-sharded table, which the port does not carry yet (``ROADMAP.md``
-A.4); passing ``reshard`` raises TypeError, as for any dataclass, and
-the port's node serves as the JAX node does with
-``reshard.enabled=False``, which the JAX package pins as
-result-identical to its default.
+A copy of the JAX package's ``runtime/config.py``: every field at its
+JAX default, and ``SecureDhtConfig`` as in JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +22,7 @@ from ..peers import PeersConfig  # noqa: F401  (knob surface)
 from ..keyspace import KeyspaceConfig  # noqa: F401  (knob surface)
 from ..hotcache import HotCacheConfig  # noqa: F401  (knob surface)
 from ..listeners import ListenerTableConfig  # noqa: F401  (knob surface)
+from ..reshard import ReshardConfig  # noqa: F401  (knob surface)
 from ..infohash import InfoHash
 
 #: total value-store budget per node (callbacks.h:117)
@@ -106,10 +101,14 @@ class Config:
 
     # --- t-sharded resolve ------------------------------------------
     #: row-shard the device-side closest-node resolve over a t-wide
-    #: mesh axis (the JAX package's ``parallel/partition.py``).  0/1 =
-    #: unsharded, the one path the port has: the sharded resolve is
-    #: not ported, and ``Dht.resolve_mesh`` raises NotImplementedError
-    #: for >= 2 instead of serving unsharded behind a warning.
+    #: mesh axis (parallel/sharded.py): ingest waves (and any other
+    #: big-batch find_closest on the snapshot) run the per-shard
+    #: windowed top-k + one cross-shard merge instead of the
+    #: single-device lookup.  0/1 = unsharded (the default); >= 2
+    #: needs that many CUDA cards (falls back to unsharded with a
+    #: logged warning when the host has fewer).  A node on the CPU
+    #: (``device="cpu"``) runs t virtual shards there.  Results are
+    #: bit-identical either way (tests/test_torch_sharded.py).
     resolve_mesh_t: int = 0
 
     # --- health observatory (health.py) ------------------------------
@@ -184,6 +183,18 @@ class Config:
     #: ``waterfall.enabled = False`` stops observation entirely —
     #: results are identical either way (the profiler only observes).
     waterfall: WaterfallConfig = field(default_factory=WaterfallConfig)
+
+    # --- load-aware resharding (reshard.py) -------------------------
+    #: the rebalance tick closing the observe→act loop on
+    #: ``dht_shard_imbalance``: when the windowed imbalance stays above
+    #: ``reshard.rebalance_threshold`` for ``reshard.sustain`` seconds
+    #: (hysteresis latch + history-frame corroboration; min-interval
+    #: cooldown), new traffic-weighted shard boundaries are solved from
+    #: the observatory's load histogram and hot-swapped under the
+    #: serving path between waves.  Lookup results are bit-identical
+    #: before, during and after a swap (tests/test_torch_reshard.py).
+    #: ``reshard.period = 0`` (or ``enabled = False``) disables the tick.
+    reshard: ReshardConfig = field(default_factory=ReshardConfig)
 
     # --- pipeline observatory (pipeline_observatory.py) -------------
     #: concurrency-aware utilization plane over the async wave

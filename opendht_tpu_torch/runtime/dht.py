@@ -22,15 +22,15 @@ node's planes; a table past ``HOST_SCAN_MAX_ROWS`` resolves through the
 device snapshot (the ``window_select`` kernel) or, once it mutates, the
 churn view.  The planes are the JAX node's, on by default: the keyspace
 observatory (``keyspace.py``), the hot-value cache (``hotcache.py``,
-with its adaptive replica set) and the batched listener table
-(``listeners.py``).  One plane is left out, each of its call sites with
-a one-line comment: load-aware resharding, which acts on a t-sharded
-table, so the node serves as the JAX node does with
-``reshard.enabled=False`` (pinned result-identical to its default).  The
-sharded resolve is not ported either: ``resolve_mesh_t >= 2`` raises
-NotImplementedError at construction.  ``warmup`` lets a failure raise
-(see its docstring).
-Everything else is the JAX module's behaviour, unchanged.
+with its adaptive replica set), the batched listener table
+(``listeners.py``) and load-aware resharding (``reshard.py``, a tick
+every 5 s on the node's scheduler).  With ``resolve_mesh_t >= 2`` the
+snapshot resolve is row-sharded over a (q=1, t) ``parallel.Mesh``: on
+the card it needs t CUDA cards (with fewer it logs a warning and serves
+the identical unsharded path, as the JAX node does); a node on the CPU
+runs up to :data:`CPU_VIRTUAL_DEVICES` virtual shards there, the JAX
+tests' 8 host devices.  ``warmup`` lets a failure raise (see its
+docstring).  Everything else is the JAX module's behaviour, unchanged.
 """
 
 from __future__ import annotations
@@ -75,6 +75,10 @@ from .live_search import (
 from .wave_builder import WaveBuilder
 
 log = logging.getLogger("opendht_tpu_torch.dht")
+
+#: devices a node on the CPU offers its resolve mesh: t virtual shards on
+#: the host, as the JAX package's tests run 8 virtual CPU devices
+CPU_VIRTUAL_DEVICES = 8
 
 _NEVER = float("-inf")
 
@@ -251,13 +255,12 @@ class Dht:
         # top-8-bit histogram over the wave target ids (one batched
         # scatter-add per ingest wave, fed by the wave builder) and
         # stored-key puts; heavy-hitter top-K + shard load-balance
-        # attribution tick on this scheduler.  The resolve is unsharded,
-        # so the loads fold over the uniform virtual split (no
-        # shard_info).
+        # attribution tick on this scheduler (shard_info: the live
+        # resolve mesh's boundaries, else the uniform virtual split)
         from ..keyspace import KeyspaceObservatory
         self.keyspace = KeyspaceObservatory(
             getattr(config, "keyspace", None), node=str(self.myid),
-            device=self.device)
+            shard_info=self._keyspace_shard_info, device=self.device)
         self.keyspace.attach(self.scheduler)
 
         # hot-key serving cache: the acting half of the observe→act
@@ -273,8 +276,19 @@ class Dht:
             clock=self.scheduler.time, device=self.device)
         self.keyspace.subscribe(self.hotcache.on_keyspace_tick)
 
-        # load-aware resharding (reshard.py in the JAX package): not
-        # ported — it acts on a t-sharded table (ROADMAP A.4)
+        # load-aware resharding: the rebalance tick closing the loop on
+        # the observatory's imbalance gauge — sustained windowed
+        # imbalance above threshold solves new traffic-weighted shard
+        # boundaries and hot-swaps them under the serving path between
+        # waves (reshard.py; config.reshard knobs).  The runner
+        # late-binds the history ring for windowed frame corroboration
+        # (set_history).
+        from ..reshard import Resharder
+        self.reshard = Resharder(
+            getattr(config, "reshard", None), node=str(self.myid),
+            keyspace=self.keyspace, shard_t=self.resolve_mesh_t,
+            on_swap=self._reshard_apply, clock=self.scheduler.time)
+        self.reshard.attach(self.scheduler)
 
         # per-peer network observatory: bounded
         # LRU ledger over remote peers — Jacobson/Karels RTT estimator,
@@ -320,11 +334,10 @@ class Dht:
             getattr(config, "waterfall", None)
             or _waterfall.WaterfallConfig())
 
-        # t-sharded resolve: not ported — resolve_mesh() raises for
-        # config.resolve_mesh_t >= 2, here at construction rather than
-        # inside the first packet handler.  last_resolve_shard_t records
-        # what the MOST RECENT batched resolve used: always 1.
-        self.resolve_mesh()
+        # t-sharded resolve (config.resolve_mesh_t): the mesh is built
+        # lazily by resolve_mesh(); last_resolve_shard_t records what
+        # the MOST RECENT batched resolve actually used
+        self._resolve_mesh = None
         self.last_resolve_shard_t = 1
 
         # maintenance telemetry: handles cached once
@@ -410,27 +423,119 @@ class Dht:
         return self.find_closest_nodes_batched([target], af, count)[0]
 
     def resolve_mesh(self):
-        """The device mesh batched resolves would row-shard over when
-        ``config.resolve_mesh_t >= 2``.  The sharded resolve is not
-        ported: None for ``resolve_mesh_t <= 1``, NotImplementedError
-        otherwise (the JAX node falls back to the unsharded path with a
-        logged warning; the port refuses the configuration instead of
-        serving something other than what was asked for)."""
+        """The (q=1, t) device mesh batched resolves row-shard over when
+        ``config.resolve_mesh_t >= 2`` — built once, ``None`` when
+        unconfigured or when there are fewer devices than requested
+        (logged; serving degrades to the identical unsharded path, never
+        fails).  On the card the devices are CUDA cards; a node on the
+        CPU has :data:`CPU_VIRTUAL_DEVICES` virtual ones."""
         t = int(getattr(self.config, "resolve_mesh_t", 0) or 0)
         if t <= 1:
             return None
-        raise NotImplementedError(
-            "resolve_mesh_t=%d: the sharded resolve is not ported to "
-            "opendht_tpu_torch; use resolve_mesh_t=0" % t)
+        if self._resolve_mesh is None:
+            try:
+                from ..parallel import make_mesh
+                if self.device.type == "cpu":
+                    have = CPU_VIRTUAL_DEVICES
+                else:
+                    import torch
+                    have = torch.cuda.device_count()
+                if have < t:
+                    log.warning(
+                        "resolve_mesh_t=%d but only %d %s device(s); "
+                        "serving the unsharded resolve path",
+                        t, have, self.device.type)
+                    self._resolve_mesh = False
+                elif self.device.type == "cpu":
+                    self._resolve_mesh = make_mesh(t, q=1, t=t,
+                                                   devices=self.device)
+                else:
+                    self._resolve_mesh = make_mesh(t, q=1, t=t)
+            except Exception:
+                log.exception("resolve mesh unavailable; serving unsharded")
+                self._resolve_mesh = False
+        return self._resolve_mesh or None
 
     def resolve_mesh_t(self) -> int:
         """Active resolve-shard width (1 = unsharded) — the ingest wave
         builder stamps this on its wave spans/snapshot."""
-        return 1
+        m = self.resolve_mesh()
+        return int(m.shape["t"]) if m is not None else 1
 
-    # the resharding hook (_reshard_apply) and the keyspace shard-info
-    # callback (_keyspace_shard_info) serve a t-sharded table, which the
-    # port does not carry: the observatory folds over its virtual split
+    def _reshard_apply(self, layout) -> dict:
+        """Resharder swap hook, called inside the swap span with the NEW
+        layout before it is installed: when a mesh and a snapshot are
+        live, eagerly rebuild the snapshot's weighted shard state (row
+        movement + placement + per-shard perm map, core/table.py
+        ``Snapshot._shard_state``) so the next wave doesn't pay the
+        rebuild.  Runs on the DHT loop (a scheduler job), strictly
+        between wave launches; waves already in flight captured the OLD
+        operands at launch.  Without a mesh it launches nothing."""
+        mesh = self.resolve_mesh()
+        if mesh is None:
+            return {"mode": "virtual"}
+        table = self._table(_socket.AF_INET)
+        snap = getattr(table, "_snap", None) if table is not None else None
+        if snap is None or int(snap.n_valid) < layout.t:
+            return {"mode": "virtual"}
+        snap._shard_state(mesh, layout)
+        return {"mode": "physical", "t": int(mesh.shape["t"])}
+
+    def _keyspace_shard_info(self):
+        """(t, bounds[, virtual]) for the keyspace observatory's per-shard
+        load attribution: when a resolve mesh is live, the ACTUAL
+        first-row ids (uint32) of shards 1..t-1 of the current v4 table
+        snapshot — folding the traffic histogram over these is the real
+        per-shard load.  ``(0, None)`` when unsharded (the observatory
+        falls back to a uniform virtual split).
+
+        With a reshard layout installed the boundaries are re-read from
+        the CURRENT snapshot at the layout's solved split, so after a
+        swap (or a snapshot rebuild) the fold follows the new edges.
+        Unsharded nodes return the layout's fractional edges with
+        ``virtual=True``, so the virtual fold follows the resharded
+        ownership too."""
+        lay = getattr(self, "reshard", None)
+        lay = lay.layout if lay is not None else None
+        t = self.resolve_mesh_t()
+        if t <= 1:
+            if lay is not None and lay.t > 1:
+                return lay.t, [float(e) for e in lay.edges], True
+            return 0, None
+        table = self._table(_socket.AF_INET)
+        snap = getattr(table, "_snap", None) if table is not None else None
+        if snap is None:
+            return t, None
+        if lay is not None:
+            n_valid = int(snap.n_valid)
+            if n_valid >= t:
+                rows = np.asarray(
+                    snap.reshard_boundary_rows(lay, t), np.int64)
+                rows = np.clip(rows, 0, max(n_valid - 1, 0))
+                return t, self._snap_ids(snap, rows), False
+        cap = snap.sorted_ids.shape[0]
+        # mirror the actual split: _shard_state pads cap UP to a multiple
+        # of t, so the per-shard row count is the ceiling
+        shard_n = -(-cap // t)
+        if shard_n == 0:
+            return t, None
+        n_valid = int(snap.n_valid)
+        if n_valid <= (t - 1) * shard_n:
+            # a partially filled table: a boundary row would fall past
+            # the valid rows and clamp, a zero-width trailing shard that
+            # reports fill level as traffic imbalance — fall back to the
+            # uniform t-way ring split
+            return t, None
+        rows = [s * shard_n for s in range(1, t)]
+        return t, self._snap_ids(snap, np.asarray(rows))
+
+    @staticmethod
+    def _snap_ids(snap, rows) -> np.ndarray:
+        """uint32 ids of the snapshot's sorted ``rows``."""
+        import torch
+        return IK.from_keys(snap.sorted_ids[
+            torch.as_tensor(np.asarray(rows, np.int64),
+                            device=snap.device)])
 
     def find_closest_nodes_batched(self, targets: List[InfoHash], af: int,
                                    count: int = TARGET_NODES
@@ -457,9 +562,16 @@ class Dht:
         if table is None or len(table) == 0 or not targets:
             return BatchedResolve.resolved([[] for _ in targets])
         now = self.scheduler.time()
-        # unsharded: the port's table takes no mesh / layout
-        pl = table.find_closest_launch(list(targets), k=count, now=now)
-        shard_t = 1
+        rs = getattr(self, "reshard", None)
+        pl = table.find_closest_launch(
+            list(targets), k=count, now=now, mesh=self.resolve_mesh(),
+            layout=rs.layout if rs is not None else None)
+        # truth, not config: the table says whether THIS resolve ran
+        # sharded (host scans and churn views ignore the mesh) — the
+        # ingest wave spans/counters attribute from this flag
+        shard_t = (self.resolve_mesh_t()
+                   if getattr(table, "last_resolve_sharded", False) else 1)
+        self.last_resolve_shard_t = shard_t
 
         def finalize():
             rows, _dist = pl.consume()

@@ -22,10 +22,8 @@ include/opendht/dhtrunner.h:51-497, src/dhtrunner.cpp):
 A copy of the JAX package's ``runtime/runner.py`` with its behaviour
 unchanged, except where a cut is marked with the ROADMAP item that
 restores it: the proxy backend (``enable_proxy``,
-``RunnerConfig(proxy_server=)`` raise NotImplementedError: A.6), the
-OPEN-bound tracker and the kernel ledger's gauges (A.3), and the
-resharding plane (A.4), whose accessor answers as the JAX runner does
-for an absent plane.
+``RunnerConfig(proxy_server=)`` raise NotImplementedError: A.6) and the
+OPEN-bound tracker and the kernel ledger's gauges (A.3).
 The device is explicit: ``run(device=None)`` means the CUDA card and
 raises when there is none; tests pass ``device="cpu"``.  Every table
 and device call runs on the DHT thread (or the caller of ``loop()``);
@@ -246,8 +244,13 @@ class DhtRunner:
                 hcfg, clock=dht.scheduler.time,
                 node=str(dht.get_node_id()))
             self._history.attach(dht.scheduler)
-            # the reshard tick's history late-bind (dht.reshard.
-            # set_history) is not ported: ROADMAP A.4
+            # the reshard tick's sustain check corroborates its latch
+            # against windowed frame evidence (reshard.py) — the ring
+            # is built here, after the Dht, so late-bind it
+            try:
+                dht.reshard.set_history(self._history)
+            except AttributeError:
+                pass
             # pipeline observatory: the recorder's frame
             # cadence IS the windowed-reset cadence — each committed
             # frame rolls the wave builder's windowed in-flight peak
@@ -898,9 +901,17 @@ class DhtRunner:
             return {"enabled": False}
 
     def get_reshard(self) -> dict:
-        """The load-aware resharding snapshot: the plane is not ported
-        (ROADMAP A.4)."""
-        return {"enabled": False}
+        """The load-aware resharding snapshot: installed layout
+        generation + edges, tick/swap/skip counters (skips
+        reason-labeled), the sustain latch age and the post-swap refolded
+        imbalance."""
+        try:
+            rs = getattr(self._dht, "reshard", None)
+            if rs is None:
+                return {"enabled": False}
+            return rs.snapshot()
+        except Exception:
+            return {"enabled": False}
 
     def get_cache(self) -> dict:
         """The hot-key serving cache snapshot: occupancy,

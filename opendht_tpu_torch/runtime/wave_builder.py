@@ -11,9 +11,8 @@ its XLA cost ledger (``profiling.ingest_wave_attrs``), which has no
 torch counterpart yet.  The planes' hooks are the JAX builder's: the
 keyspace observatory sees each wave's targets, the hot-value cache's
 probe serves cached gets before the launch, and the buffered stored
-puts ride each fire's listener flush.  The resharding plane's hook (the
-boundary generation a wave ran on) is left out with the plane: every
-wave reports generation 0, the uniform split.
+puts ride each fire's listener flush, and each wave carries the reshard
+boundary generation it ran on.
 
 Five rounds of kernel work made the device side of a lookup a ``[Q]``
 wave (``find_closest_nodes_batched`` → one lane-padded top-k launch for
@@ -466,7 +465,7 @@ class WaveBuilder:
         # depth-1 lifecycle: device busy exactly for the blocking
         # launch; dispatch and wait are one edge pair here
         seq = self.observatory.on_dispatch(
-            t_fill, t_fire, len(entries), af, k, 0, 0)
+            t_fill, t_fire, len(entries), af, k, 0, self._reshard_gen())
         with reg.span("dht_ingest_wave_seconds") as sp:
             try:
                 results = self._dht.find_closest_nodes_batched(
@@ -513,7 +512,7 @@ class WaveBuilder:
             return
         seq = self.observatory.on_dispatch(
             t_fill, t_dispatch, len(entries), af, k,
-            len(self._inflight), 0)
+            len(self._inflight), self._reshard_gen())
         dispatch_s = max(0.0, _time.time() - t_dispatch)
         if wf.enabled:
             # host-side dispatch cost is its
@@ -621,8 +620,14 @@ class WaveBuilder:
             self._arm(self._dht.scheduler.time() + self.deadline)
         return exhausted
 
-    # resharding plane (the boundary generation a wave ran on, passed
-    # to the observatory as 0 above): not ported
+    def _reshard_gen(self) -> int:
+        """Boundary generation currently serving (0 = uniform split) —
+        the observatory tags each wave with it so a hot swap between
+        waves classifies the idle gap as ``reshard_swap``."""
+        rs = getattr(self._dht, "reshard", None)
+        if rs is not None and getattr(rs, "layout", None) is not None:
+            return int(rs.layout.gen)
+        return 0
 
     def _scatter(self, af: int, k: int, entries: List[_Entry], results,
                  wf, t_pick: "float | None", probe_s: float,
@@ -686,14 +691,14 @@ class WaveBuilder:
             # pipelined wave that includes the in-flight overlap window
             # — the wall truth); pipeline_slot = waves already in
             # flight when this one launched (0 = head of the pipeline)
-            # reshard generation serving this wave: always 0 (the
-            # resharding plane is not ported)
+            rs = getattr(self._dht, "reshard", None)
             wave_ctx = tr.record(
                 "dht.search.wave", t_dispatch,
                 max(0.0, t_avail - t_dispatch),
                 mode="ingest", occupancy=len(entries), af=af, k=k,
                 table_shard_t=shard_t, pipeline_slot=slot,
-                reshard_gen=0)
+                reshard_gen=(rs.layout.gen if rs is not None
+                             and rs.layout is not None else 0))
         for e, nodes in zip(entries, results):
             if wave_ctx is not None and e.ctx is not None:
                 # span covers submit → scatter, anchored on the entry's

@@ -9,9 +9,8 @@ the JAX package's ``Dht``.
   draws its refresh targets from jax.random in one and torch in the
   other), so the ops' results are compared: put/get/query outcomes,
   the values and fields found, listener deliveries and expiry pushes,
-  who holds a value.  Both run at their defaults, planes on; the JAX
-  nodes turn off only the resharding plane, which the port does not
-  carry (the JAX package pins its off state as result-identical).
+  who holds a value.  Both run at their defaults, every plane on, the
+  resharder included.
 - A mixed cluster of port and JAX nodes round-trips put → get and
   put → listen in both directions.
 - ``ingest_pipeline_depth`` 1 ≡ 2 ≡ ``ingest_batching="off"`` on the
@@ -69,14 +68,6 @@ def _mods(pkg: str) -> dict:
             "Field": m["core.value"].Field}
 
 
-def _jax_planes_off() -> dict:
-    """The JAX Config knob that turns off the one plane the port leaves
-    out (load-aware resharding); every other plane stays at its JAX
-    default, on."""
-    from opendht_tpu.reshard import ReshardConfig
-    return {"reshard": ReshardConfig(enabled=False)}
-
-
 class Net:
     """An in-process virtual network of Dht nodes of either package (the
     shape of opendht_tpu.testing.VirtualNet): datagrams queue on one
@@ -100,8 +91,6 @@ class Net:
                                      (dest.host, dest.port)))
             return 0
 
-        if pkg == JAX:
-            cfg = {**_jax_planes_off(), **cfg}
         kw = {"device": "cpu"} if pkg == PORT else {}
         d = M["Dht"](send, M["Config"](node_id=M["InfoHash"].get(name),
                                        **cfg),
@@ -468,12 +457,11 @@ def test_config1_gets_end_by_expiry_as_on_the_jax_node(monkeypatch):
         _seeded(monkeypatch, 1)
         clock = {"t": 0.0}
         sent = []
-        cfg = _jax_planes_off() if pkg == JAX else {}
         kw = {"device": "cpu"} if pkg == PORT else {}
         dht = M["Dht"](lambda d, a: sent.append((clock["t"], str(a),
                                                  bytes(d))) and 0,
                        M["Config"](node_id=M["InfoHash"](me),
-                                   ingest_pipeline_depth=1, **cfg),
+                                   ingest_pipeline_depth=1),
                        M["Scheduler"](clock=lambda: clock["t"]),
                        has_v6=False, **kw)
         table = dht.tables[AF]
@@ -679,9 +667,19 @@ def test_batched_resolve_matches_the_jax_table():
 
 
 # ----------------------------------------------------------- the surface
-def test_resolve_mesh_t_2_raises():
-    with pytest.raises(NotImplementedError, match="sharded resolve"):
-        Dht(lambda d, a: 0, Config(resolve_mesh_t=2), device="cpu")
+def test_resolve_mesh_t_2_raises(caplog):
+    """``resolve_mesh_t=2`` no longer raises: a node on the CPU builds a
+    (q=1, t=2) mesh of virtual shards; more shards than the CPU's
+    virtual devices log a warning and serve unsharded, as the JAX node
+    does with too few devices; 1 is unsharded."""
+    dht = Dht(lambda d, a: 0, Config(resolve_mesh_t=2), device="cpu")
+    m = dht.resolve_mesh()
+    assert m.shape == {"q": 1, "t": 2} and dht.resolve_mesh_t() == 2
+    assert {d.type for d in m.devices.reshape(-1)} == {"cpu"}
+    with caplog.at_level("WARNING", logger="opendht_tpu_torch.dht"):
+        big = Dht(lambda d, a: 0, Config(resolve_mesh_t=512), device="cpu")
+        assert big.resolve_mesh() is None and big.resolve_mesh_t() == 1
+    assert "serving the unsharded resolve path" in caplog.text
     dht = Dht(lambda d, a: 0, Config(resolve_mesh_t=1), device="cpu")
     assert dht.resolve_mesh() is None and dht.resolve_mesh_t() == 1
     assert dht.last_resolve_shard_t == 1
@@ -689,10 +687,14 @@ def test_resolve_mesh_t_2_raises():
 
 @pytest.mark.parametrize("field", ["reshard"])
 def test_left_out_config_fields_raise(field):
+    """The one field the port once left out is back, at the JAX
+    default (the resharder on)."""
+    import dataclasses
     from opendht_tpu.runtime import Config as JConfig
     assert field in JConfig.__dataclass_fields__
-    with pytest.raises(TypeError):
-        Config(**{field: getattr(JConfig(), field)})
+    assert dataclasses.asdict(getattr(Config(), field)) == \
+        dataclasses.asdict(getattr(JConfig(), field))
+    assert Config().reshard.enabled is True
 
 
 @pytest.mark.parametrize("field", ["keyspace", "cache", "listeners",
@@ -779,7 +781,7 @@ def test_dht_from_jax_answers_the_same_bytes():
     out = {"jax": [], "port": []}
     random.seed(1)
     src = JDht(lambda d, a: out["jax"].append(bytes(d)) or 0,
-               JConfig(node_id=JHash(me), **_jax_planes_off()), has_v6=False)
+               JConfig(node_id=JHash(me)), has_v6=False)
     ids = np.random.default_rng(2).integers(0, 2 ** 32, size=(300, 5),
                                             dtype=np.uint32)
     src.tables[AF].bulk_load(ids, src.scheduler.time(),

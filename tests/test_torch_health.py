@@ -284,18 +284,16 @@ SIGNALS = ("_connectivity", "_ingest_queue", "_stale_buckets",
 
 def test_node_health_signals_agree_on_a_port_and_a_jax_node():
     """The per-node signals of a fresh node of each package, both at
-    their defaults (planes on; the JAX node's resharding off): the same
+    their defaults (every plane on): the same
     values, the keyspace and hot-cache signals unknown on both (nothing
     observed, no cache window yet)."""
     from opendht_tpu.infohash import InfoHash as JHash
-    from opendht_tpu.reshard import ReshardConfig
     from opendht_tpu.runtime import Config as JConfig, Dht as JDht
     from opendht_tpu_torch.infohash import InfoHash
     from opendht_tpu_torch.runtime import Config, Dht
 
     jd = JDht(lambda d, a: 0, JConfig(
-        node_id=JHash.get("health-node"), ingest_queue_max=8,
-        reshard=ReshardConfig(enabled=False)),
+        node_id=JHash.get("health-node"), ingest_queue_max=8),
         has_v6=False)
     pd = Dht(lambda d, a: 0, Config(node_id=InfoHash.get("health-node"),
                                     ingest_queue_max=8),

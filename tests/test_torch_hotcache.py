@@ -11,7 +11,7 @@ its defaults against a JAX node at its defaults.
   admissions, evictions, capacity bound, fill-on-get offers with their
   freshness tokens, invalidations, probes and ``serve_one`` answers,
   replica sets and snapshots; the go-dark contract.
-- Twin nodes at the defaults (the JAX node with only ``reshard`` off):
+- Twin nodes at the defaults (every plane on, the resharder included):
   the same datagrams at the same virtual times — locally stored values,
   a Zipf get stream that turns keys hot, cache hits, ``replica_k`` 16
   and the widened announce walk, a client's get_values for a hot key —
@@ -256,9 +256,8 @@ def seeded(monkeypatch, seed: int) -> None:
 
 
 class TwinNode:
-    """One node of either package at its defaults (the JAX node with
-    ``reshard`` off, the one plane the port leaves out) on a virtual
-    clock, a 300-row table at loopback addresses that answer nothing,
+    """One node of either package at its defaults (every plane on, the
+    resharder included) on a virtual clock, a 300-row table at loopback addresses that answer nothing,
     and a transport that records (virtual time, destination, bytes).
     ``sweeps`` carries the JAX node's maintenance draws to the port's
     (None: a node on its own, its draws its own)."""
@@ -270,9 +269,6 @@ class TwinNode:
         seeded(monkeypatch, seed)
         self.clock = {"t": 0.0}
         self.sent = []
-        if pkg == JAX:
-            from opendht_tpu.reshard import ReshardConfig
-            cfg = {"reshard": ReshardConfig(enabled=False), **cfg}
         kw = {"device": CPU} if pkg == PORT else {}
         self.dht = M["Dht"](
             lambda d, a: self.sent.append((self.clock["t"], str(a),

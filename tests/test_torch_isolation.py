@@ -26,6 +26,7 @@ from opendht_tpu_torch.core.table import NodeTable
 from opendht_tpu_torch.infohash import InfoHash
 from opendht_tpu_torch.ops import ids as TK
 from opendht_tpu_torch.ops import radix
+from opendht_tpu_torch.parallel import make_mesh
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -56,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
     for mod in ("_msgpack", "utils", "net.engine", "runtime.dht",
                 "runtime.wave_builder", "runtime.live_search", "waterfall",
                 "keyspace", "hotcache", "listeners", "chaos", "ops.sketch",
-                "ops.cache_probe", "ops.listener_match"):
+                "ops.cache_probe", "ops.listener_match", "parallel",
+                "parallel.partition", "parallel.sharded", "reshard"):
         assert f"opendht_tpu_torch.{mod}" in want
 
 
@@ -104,6 +106,58 @@ def test_a_node_with_its_planes_at_work_loads_no_jax_module():
     assert res["bad"] == []
     assert res["heard"] == 1 and res["listeners"] == 1
     assert res["observed"] > 0 and res["cached"] == 1
+
+
+_SCALE_PROBE = """
+import json, sys
+import numpy as np
+from opendht_tpu_torch import parallel, reshard
+from opendht_tpu_torch.infohash import InfoHash
+from opendht_tpu_torch.runtime import Config, Dht
+from opendht_tpu_torch.scheduler import Scheduler
+from opendht_tpu_torch.sockaddr import SockAddr
+rng = np.random.default_rng(0)
+ids = rng.integers(0, 2 ** 32, size=(512, 5), dtype=np.uint32)
+q = rng.integers(0, 2 ** 32, size=(16, 5), dtype=np.uint32)
+mesh = parallel.make_mesh(4, q=2, t=2, devices="cpu")
+d, i = parallel.sharded_lookup(mesh, q, ids, k=8, window=32)
+s = ids[np.lexsort(ids.T[::-1])]
+out = parallel.tp_simulate_lookups(mesh, s, 512, q, seed=1)
+clock = [0.0]
+dht = Dht(lambda d, a: 0, Config(resolve_mesh_t=4),
+          Scheduler(clock=lambda: clock[0]), has_v6=False, device="cpu")
+dht.tables[2].bulk_load(rng.integers(0, 2 ** 32, size=(5000, 5),
+                                     dtype=np.uint32), 0.0,
+                        addrs=SockAddr("127.0.0.2", 4000))
+res = dht.find_closest_nodes_batched([InfoHash.get_random()
+                                      for _ in range(100)], 2, 8)
+for _ in range(30):
+    clock[0] += 1.0
+    dht.periodic(None, None)
+print(json.dumps({
+    "rows": int((i >= 0).sum()), "hops": int(out["hops"].max()),
+    "shard_t": dht.last_resolve_shard_t, "answers": len(res),
+    "ticks": dht.reshard.snapshot()["ticks"],
+    "bad": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "opendht_tpu",
+                                         "msgpack"))}))
+"""
+
+
+def test_scale_out_and_the_resharder_load_no_jax_module():
+    """The ``parallel`` package (a sharded lookup and the table-parallel
+    engine on a virtual CPU mesh) and ``reshard.py`` (a node with
+    ``resolve_mesh_t=4`` serving a batched resolve through the sharded
+    snapshot while its resharder ticks) load neither JAX nor
+    ``opendht_tpu``."""
+    out = subprocess.run([sys.executable, "-c", _SCALE_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    assert res["rows"] == 16 * 8 and res["hops"] > 0
+    assert res["shard_t"] == 4 and res["answers"] == 100
+    assert res["ticks"] >= 5
 
 
 _NO_CRYPTO_PROBE = """
@@ -212,6 +266,7 @@ def _entry_points():
         "NodeTable.network_size_estimate": lambda: NodeTable(
             InfoHash.get("me")).network_size_estimate(),
         "Dht": lambda: opendht_tpu_torch.Dht(lambda data, addr: 0),
+        "make_mesh": lambda: make_mesh(2),
         "DhtRunner.run": lambda: opendht_tpu_torch.DhtRunner().run(0),
     }
 
@@ -261,14 +316,15 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
                       "--churn-e", "64", "--churn-table-n", "20000",
                       "--serve-n", "8192", "--serve-q", "16",
                       "--serve-gets", "100", "--planes-keys", "200",
-                      "--planes-gets", "600")
+                      "--planes-gets", "600", "--scale-n", "20000",
+                      "--scale-q", "256")
     assert out.returncode == 3, out.stderr[-2000:]
     lines = [json.loads(l) for l in out.stdout.splitlines()
              if l.startswith("{")]
     phases = [l.get("phase") for l in lines]
     assert phases[:-1] == ["device", "main", "parity", "timing", "profile",
                            "memory", "search", "maintenance", "churn",
-                           "serve", "runner", "planes"]
+                           "serve", "runner", "planes", "scale"]
     search = lines[phases.index("search")]
     assert search["lookups"] == 2 * 256
     assert search["checks"]["goldens"] == ["lut_l5", "lut_l2", "exact_l5"]
@@ -314,6 +370,12 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
         "listener_match_S64_L1024", "listener_match_S64_L8192",
         "cache_probe_Q64_C64", "sketch_update_Q64", "sketch_query_Q64",
         "sketch_decay"}
+    scale = lines[phases.index("scale")]
+    assert scale["config5"]["sample"] == 256
+    assert set(scale["virtual_mesh"]) >= {"2", "4", "8"}
+    assert scale["tp_engine"]["t"] == 4
+    assert scale["node_layout"]["q"] == 256
+    assert scale["reshard_tick"]["result"]["mode"] == "virtual"
     kernels = lines[-1]["kernels"]
     assert [k["name"] for k in kernels] == ["window_select",
                                             "lex_topk_select"]

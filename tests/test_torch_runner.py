@@ -10,9 +10,9 @@ real localhost UDP, against the JAX package's.
   both directions.
 - A node carried by ``convert.secure_dht_from_jax`` answers a client's
   find and get with the same bytes as the original.
-- The runner's cuts: the proxy raises NotImplementedError, the planes
-  not ported answer ``{"enabled": False}``, and a runner without
-  ``device=`` needs the card.
+- The runner's cuts: the proxy raises NotImplementedError, and a runner
+  without ``device=`` needs the card.  Every plane's accessor (the
+  resharder's included) reports with the JAX runner's keys.
 
 Every real-UDP test binds port 0, waits on predicates with budgets of
 at least 20 s and joins its runners in ``finally``.
@@ -21,6 +21,7 @@ at least 20 s and joins its runners in ``finally``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import random
 import socket
 import time
@@ -241,21 +242,23 @@ def test_proxy_is_not_ported():
 
 
 def test_planes_not_ported_answer_as_absent_and_the_rest_report():
-    """The accessor of the plane the port does not carry (resharding)
-    gives the JAX runner's answer for an absent plane; the planes the
-    port carries (keyspace, cache, listener table) report as the JAX
-    runner's do, with the same keys; health, history, the bundle, the
-    waterfall, the pipeline and the peers report."""
+    """Every plane the port carries (keyspace, cache, listener table and,
+    since the resharder is ported, resharding) reports as the JAX
+    runner's does, with the same keys; the resharder reads the runner's
+    history ring; health, history, the bundle, the waterfall, the
+    pipeline and the peers report."""
     from opendht_tpu.hotcache import HotValueCache as JCache
     from opendht_tpu.keyspace import KeyspaceObservatory as JObs
     from opendht_tpu.listeners import ListenerTable as JTable
+    from opendht_tpu.reshard import Resharder as JResharder
     r = DhtRunner()
     r.run(0, **CPU)
     try:
-        assert r.get_reshard() == {"enabled": False}
+        assert r._dht.reshard.history is r._history
         for get, jax_plane in ((r.get_keyspace, JObs()),
                                (r.get_cache, JCache()),
-                               (r.get_listeners, JTable())):
+                               (r.get_listeners, JTable()),
+                               (r.get_reshard, JResharder())):
             snap = get()
             assert snap["enabled"] is True
             assert set(snap) == set(jax_plane.snapshot())
@@ -345,14 +348,6 @@ def test_the_runner_serves_its_table_through_the_device_route():
 
 
 # --------------------------------------------- a mixed JAX / port cluster
-def _jax_planes_off() -> dict:
-    """The JAX Config knob that turns off the one plane the port leaves
-    out (load-aware resharding); the other planes stay on, as on the
-    port's nodes."""
-    from opendht_tpu.reshard import ReshardConfig
-    return {"reshard": ReshardConfig(enabled=False)}
-
-
 def _jax_runner_mods():
     from opendht_tpu import crypto as jcrypto
     from opendht_tpu.core.value import Value as JValue
@@ -363,11 +358,25 @@ def _jax_runner_mods():
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
-def test_mixed_cluster_put_get_listen_and_signed_put(writer):
+def test_mixed_cluster_put_get_listen_and_signed_put(writer, monkeypatch):
     """A JAX runner and a port runner over localhost UDP: the writer's
     put reaches the reader's get and listener, and a signed put made on
     the writer verifies on the reader.  A first exchange, not checked,
-    lets each node build what it builds at first use."""
+    lets each node build what it builds at first use.
+
+    The JAX node compiles an XLA program on its DHT thread the first time
+    it meets each shape (the keyspace sketch update per wave width, the
+    listener match per batch of stored puts).  On a loaded host one
+    compile takes seconds: the JAX runner then drops every datagram that
+    waited in its receive queue longer than ``RX_QUEUE_MAX_DELAY`` (0.5
+    s), and the port's requests to it expire after their three 1 s
+    attempts.  So the unchecked first exchange runs every op of the
+    checked one (put, get, listen and push, signed put and get) on keys
+    of its own, which compiles the shapes the checked ops meet, and the
+    JAX peer keeps delayed packets (a 60 s limit) instead of dropping
+    them; the port runner's own limit is unchanged."""
+    import opendht_tpu.runtime.runner as jrunner
+    monkeypatch.setattr(jrunner, "RX_QUEUE_MAX_DELAY", 60.0)
     from opendht_tpu.runtime import Config as JConfig
     from opendht_tpu_torch import crypto
     jcrypto, JValue, JHash, JRunner, JRunnerConfig = _jax_runner_mods()
@@ -376,16 +385,28 @@ def test_mixed_cluster_put_get_listen_and_signed_put(writer):
     port, jax_r = DhtRunner(), JRunner()
     try:
         port.run(0, RunnerConfig(identity=pid), **CPU)
-        jax_r.run(0, JRunnerConfig(dht_config=JConfig(**_jax_planes_off()),
-                                   identity=jid))
+        jax_r.run(0, JRunnerConfig(dht_config=JConfig(), identity=jid))
         if writer == "port":
             w, rd, WVal, RHash, WHash = port, jax_r, Value, JHash, InfoHash
         else:
             w, rd, WVal, RHash, WHash = jax_r, port, JValue, InfoHash, JHash
         rd.bootstrap("127.0.0.1", w.get_bound_port())
         assert wait_for(lambda: connected(port, jax_r), 30.0)
-        w.put_sync(WHash.get("mixed-warm"), WVal(b"warm"), timeout=30.0)
-        rd.get_sync(RHash.get("mixed-warm"), timeout=30.0)
+        warm = []
+        with contextlib.suppress(TimeoutError):
+            w.put_sync(WHash.get("mixed-warm"), WVal(b"warm"), timeout=30.0)
+            rd.get_sync(RHash.get("mixed-warm"), timeout=30.0)
+            rd.listen(RHash.get("mixed-warm-listen"),
+                      lambda vals, expired: warm.extend(vals) or True
+                      ).result(30.0)
+            w.put(WHash.get("mixed-warm-listen"), WVal(b"warm"))
+            wait_for(lambda: warm, 30.0)
+            signed = concurrent.futures.Future()
+            w.put_signed(WHash.get("mixed-warm-signed"), WVal(b"warm"),
+                         lambda ok, ns: signed.done()
+                         or signed.set_result(ok))
+            signed.result(30.0)
+            rd.get_sync(RHash.get("mixed-warm-signed"), timeout=30.0)
 
         heard = []
         tok = rd.listen(RHash.get("mixed-listen"),
@@ -423,7 +444,6 @@ def test_secure_dht_from_jax_answers_as_the_original():
     from opendht_tpu.infohash import InfoHash as JHash
     from opendht_tpu.net.engine import (EngineCallbacks as JCbs,
                                         NetworkEngine as JEngine)
-    from opendht_tpu.reshard import ReshardConfig
     from opendht_tpu.runtime import Config as JConfig, Dht as JDht
     from opendht_tpu.runtime.secure_dht import (SecureDht as JSecure,
                                                 secure_node_id)
@@ -441,8 +461,7 @@ def test_secure_dht_from_jax_answers_as_the_original():
                              and out[which].append(bytes(d))) or 0
     random.seed(3)
     inner = JDht(to_client("jax"),
-                 JConfig(node_id=secure_node_id(ident.second),
-                         reshard=ReshardConfig(enabled=False)),
+                 JConfig(node_id=secure_node_id(ident.second)),
                  has_v6=False)
     src = JSecure(inner, ident)
     src.register_certificate(other.second)

@@ -156,12 +156,6 @@ def _mods(pkg):
             "CERTIFICATE_TYPE": m["runtime.secure_dht"].CERTIFICATE_TYPE}
 
 
-def _jax_planes_off() -> dict:
-    """Only the resharding plane, which the port leaves out."""
-    from opendht_tpu.reshard import ReshardConfig
-    return {"reshard": ReshardConfig(enabled=False)}
-
-
 class Net:
     """Dht nodes of one package on a virtual clock: datagrams queue on
     one event heap and the clock jumps to the next arrival or job."""
@@ -181,9 +175,8 @@ class Net:
                                      bytes(data), _src,
                                      (dest.host, dest.port)))
             return 0
-        cfg = _jax_planes_off() if self.pkg == JAX else {}
         kw = {"device": "cpu"} if self.pkg == PORT else {}
-        d = self.M["Dht"](send, self.M["Config"](node_id=node_id, **cfg),
+        d = self.M["Dht"](send, self.M["Config"](node_id=node_id),
                           self.M["Scheduler"](clock=lambda: self.clock),
                           has_v6=False, **kw)
         d.key = key
