@@ -5,7 +5,7 @@
     python3 chip_smoke.py --cpu --n 20000 --q 512 \
         --search-n 20000 --search-q 256 --search-waves 2 \
         --serve-n 20000 --serve-q 64 --serve-gets 200 \
-        --scale-n 20000 --scale-q 256                      # rehearsal
+        --scale-n 20000 --scale-q 256 --swarm-n 2048       # rehearsal
 
 Phases, one JSON line each:
 
@@ -158,8 +158,9 @@ Phases, one JSON line each:
              Then the live node's 1,000,000 ids (live_node_data) at the
              JAX defaults but the keyspace's hot share (PLANES_HOT_SHARE;
              and max_req_per_sec, as in the serve phase) on a virtual
-             clock: a client engine puts one value on each of 10,000
-             keys over loopback (keys near the node's id, so its
+             clock: a client engine puts one value on each of
+             --planes-keys keys (4,000: cut from 10,000 to keep the full
+             run near 600 s, PERF.md §4) over loopback (keys near the node's id, so its
              announce's too-far check stores them), PLANES_WINDOW
              unanswered at a time; 20 virtual s later 4,096 Dht.get over
              those keys drawn from a seeded Zipf(0.99) (YCSB workload
@@ -212,13 +213,57 @@ Phases, one JSON line each:
              mode launches no kernel and no copy (profiler).
              (--scale-n / --scale-q size (a)-(c).)
 
+15. ledger — the kernel cost ledger (opendht_tpu_torch/profiling.py)
+             on the card: KernelLedger.compute() and .measure() of all 16
+             canonical specs (launches dispatched and the CUDA kernels
+             and copies one call issues, device ms as the median CUDA-
+             event span, the byte bound and its roofline share against
+             the h100 peaks row, peak temporaries); fails unless every
+             CPU-deterministic field (shape, argument / output bytes,
+             byte bound, operations model) equals
+             opendht_tpu_torch/perf_budgets.json, every spec was timed
+             and its device events captured, and perf_gate passes
+             against this ledger (launches printed beside the CPU
+             budget, not gated; peak temporaries a soft warning).  The
+             ledger is written as ledger.json into the smoke-record
+             directory.  Both kernels' launches by the lookup
+             specs join the kernels line.  Then the live node's table
+             (live_node_data, --serve-n) in a Dht: Q=1 resolves through
+             the snapshot and, after a join, through the churn view,
+             under torch.profiler: device kernels and copies per call
+             split by the aten op that launched them, the top ten by
+             count and by device time, and the ops dispatched.
+16. swarm  — ops/swarm.py's storm (benchmarks/exp_chaos_r18.py's full
+             arc): --swarm-n nodes (50,000), 64 keys, sweep 32, 22
+             ticks, seed 5, repub_every 2 on the card: host ms per tick
+             p50 / p99, per-tick device ms, kernels and copies, peak
+             device memory, and per tick the active phases, n_alive,
+             lookup_success, replica_coverage, model_err and the
+             verdict; fails unless tick 0 is healthy, the cut degrades,
+             the end is healthy (lookup success and coverage >= 0.95)
+             and the arc replays identically under its seed (the replay
+             is the profiled run).  Then a 4,096-node, 48-key arc of 8
+             ticks on the card and through the numpy oracle
+             (swarm_step_host) on the same drawn bits: every state
+             array, metric and probe equal.  The storm's tick p50 is
+             written as swarm_storm.json into the smoke-record directory.
+17. bench  — python -m opendht_tpu_torch.bench once at --n x --q: its
+             JSON line (lookups/s by the chain slope, certified share,
+             exactness against the full scan, the scalar baseline),
+             written as bench.json into the smoke-record directory; then
+             perf_gate's soft timing ceilings over that directory
+             (warnings, never a failure).
+
+The smoke-record directory is $OPENDHT_TPU_SMOKE_RECORD_DIR, else
+build/smoke_records beside this script: ``python -m
+opendht_tpu_torch.perf_gate --records DIR`` reads it.
+
 Then the kernels line ({"kernels": [...]}) and, last, the ok line.  Any
 failure raises (nonzero exit, no ok line).  Without a card it exits
 nonzero before any result; ``--cpu`` rehearses every phase on the host
 with the plain versions and also ends without the ok line, as does a
-partial run (``--phases churn``, ``--phases serve``, ``--phases
-runner``, ``--phases planes`` or ``--phases scale``: phases 1-7, then
-only that phase).
+partial run (``--phases`` with a comma-separated list of late phases,
+e.g. ``--phases ledger,swarm``: phases 1-7, then only those).
 """
 
 from __future__ import annotations
@@ -227,6 +272,7 @@ import argparse
 import hashlib
 import json
 import logging
+import os
 import socket
 import statistics
 import subprocess
@@ -248,6 +294,9 @@ OPS_PER_S = 67e12              # H100 SXM 32-bit rate outside the tensor cores
 SERVE_WINDOW = 4
 # values put and got across the runner phase's small cluster
 RUNNER_VALUES = 64
+# the phases after main, in their order; --phases picks some of them
+LATE_PHASES = ("search", "maintenance", "churn", "serve", "runner",
+               "planes", "scale", "ledger", "swarm", "bench")
 
 
 def emit(obj) -> None:
@@ -305,31 +354,25 @@ DEVICE_TOTALS = ("device_ms", "kernels", "copies")
 
 
 def device_totals(prof, cuda: bool, per: int = 1) -> dict:
-    """The device-side events of a torch.profiler run (kernels, copies
-    and fills): their summed time and counts, each divided by ``per``,
-    and the eight that took the most time.  The device spans of the
-    record_function stage labels (churn.*, search.*) cover kernels
-    already counted: they are listed apart as ``stages``."""
-    import torch
+    """profiling.device_totals of a torch.profiler run on the card (its
+    kernels, copies and fills per ``per``, the top ten by device time,
+    the stage labels apart); "not measured" on the host."""
     if not cuda:
         return dict.fromkeys(DEVICE_TOTALS + ("top", "stages"),
                              "not measured")
-    ev, stages = [], []
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            label = (getattr(e, "is_user_annotation", False)
-                     or e.key.startswith(("churn.", "search.")))
-            (stages if label else ev).append(e)
-    copies = sum(e.count for e in ev if e.key.startswith(("Memcpy", "Memset")))
-    top = sorted(ev, key=lambda e: e.self_device_time_total, reverse=True)
-    return {"device_ms": sum(e.self_device_time_total for e in ev) / 1e3 / per,
-            "kernels": (sum(e.count for e in ev) - copies) / per,
-            "copies": copies / per,
-            "top": [{"name": e.key[:80], "calls": e.count / per,
-                     "device_ms": e.self_device_time_total / 1e3 / per}
-                    for e in top[:8]],
-            "stages": {e.key: e.device_time_total / 1e3 / per
-                       for e in stages}}
+    from opendht_tpu_torch import profiling
+    return profiling.device_totals(prof, per)
+
+
+def smoke_record(name: str, doc: dict) -> str:
+    """Write ``doc`` as ``<name>.json`` into the smoke-record directory
+    (module docstring), which perf_gate's soft checks read."""
+    d = os.environ["OPENDHT_TPU_SMOKE_RECORD_DIR"]
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, name + ".json")
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+    return path
 
 
 def host_median_ms(fn, *, reps: int = 5, warmup: int = 1) -> float:
@@ -2917,6 +2960,296 @@ def scale_phase(args, dev, card, sync) -> dict:
     return launches, err
 
 
+# ------------------------------------- cost ledger, swarm and bench twin
+def op_launch_split(prof) -> dict:
+    """Device kernels and copies of a profiled window split by the aten op
+    that launched them (the profiler links each device event to its
+    launching op), with the top ten by count and by device time.  Events
+    launched outside any aten op (the hand kernels' ctypes launches)
+    count as ``unattributed``."""
+    from collections import Counter
+    import torch
+    count, dev_us = Counter(), Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        ks = getattr(e, "kernels", None) or []
+        if ks and not getattr(e, "is_user_annotation", False):
+            count[e.name] += len(ks)
+            dev_us[e.name] += sum(k.duration for k in ks)
+    total = device_totals(prof, True)
+    launched = total["kernels"] + total["copies"]
+    return {"device_events": launched, "kernels": total["kernels"],
+            "copies": total["copies"], "device_ms": total["device_ms"],
+            "attributed": sum(count.values()),
+            "unattributed": launched - sum(count.values()),
+            "ops": len(count),
+            "top_by_count": [[n, c, dev_us[n] / 1e3]
+                             for n, c in count.most_common(10)],
+            "top_by_device_ms": [[n, count[n], us / 1e3] for n, us in
+                                 dev_us.most_common(10)]}
+
+
+def ledger_phase(args, dev, card, sync) -> dict:
+    """The kernel cost ledger on the card (module docstring, phase 15):
+    every spec computed and measured, its CPU-deterministic fields held
+    to the port's budgets, the gate run against this ledger, and the
+    live node's Q=1 resolves split by op.  Returns the kernel launches
+    the phase counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from opendht_tpu_torch import perf_gate, profiling
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.ops import ids as IK
+    from opendht_tpu_torch.ops.lex_select import lex_topk_select
+    from opendht_tpu_torch.ops.window_select import window_select
+    from opendht_tpu_torch.runtime import Config, Dht
+    from opendht_tpu_torch.sockaddr import SockAddr
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    window_select.launches = lex_topk_select.launches = 0
+    led = profiling.KernelLedger()
+    comp = led.compute(device=dev)
+    meas = led.measure(device=dev) if cuda else comp
+    launches = {"window_select": window_select.launches,
+                "lex_topk_select": lex_topk_select.launches}
+    bad = {n: e["error"] for n, e in meas.items() if "error" in e}
+    require(not bad, f"ledger specs failed on the device: {bad}")
+    if cuda:
+        # measure() raises where it cannot time a spec; a spec whose
+        # window the profiler left empty carries None
+        untimed = [n for n, e in meas.items()
+                   if e.get("device_ms") is None or not e.get("roofline")
+                   or e.get("peak_temp_bytes") is None
+                   or e.get("device_kernels") is None]
+        require(not untimed, f"ledger specs without a device time, a "
+                f"roofline, a peak or captured device events: {untimed}")
+    budgets = perf_gate._load_budgets(perf_gate.BUDGETS)
+    rows, drift = {}, []
+    for name, e in meas.items():
+        b = budgets["kernels"][name]
+        for f in profiling.DETERMINISTIC_FIELDS:
+            if e[f] != b[f]:
+                drift.append(f"{name}.{f}: device {e[f]} vs budget {b[f]}")
+        rl = e.get("roofline") or {}
+        rows[name] = {
+            "launches_dispatched": e["launches"],
+            "launches_cpu_budget": b["launches"],
+            "device_kernels": e.get("device_kernels", "not measured"),
+            "device_copies": e.get("device_copies", "not measured"),
+            "kernel_ms": e.get("kernel_ms", "not measured"),
+            "device_ms": e.get("device_ms", "not measured"),
+            "bytes_bound": e["bytes_bound"], "flops_model": e["flops_model"],
+            "bound_ms": rl.get("bound_ms", "not measured"),
+            "bound_by": rl.get("bound", "not measured"),
+            "hbm_pct_of_peak": rl.get("hbm_pct_of_peak", "not measured"),
+            "peak_key": rl.get("peak_key", "not measured"),
+            "peak_temp_bytes": e.get("peak_temp_bytes", "not measured"),
+            "top_kernels": e.get("device_top", "not measured")}
+    fails, warns = perf_gate.gate(budgets, meas)
+    record = smoke_record("ledger", meas)
+    emit({"phase": "ledger", **card, "specs": rows, "record": record,
+          "cuda_kernel_launches": launches, "gate_failures": fails,
+          "gate_warnings": warns,
+          "peaks": profiling.platform_peaks(dev) if cuda else "not measured",
+          "seconds": time.perf_counter() - t_phase})
+    require(not drift, f"ledger fields differ from the budgets: {drift}")
+    require(not fails, f"perf_gate against the device ledger: {fails}")
+    if cuda:
+        require(launches["window_select"] >= 1
+                and launches["lex_topk_select"] >= 1,
+                "the ledger's lookup specs launched both kernels")
+
+    # ---- C.2.1: the live node's Q=1 resolves split by op -------------
+    AF = socket.AF_INET
+    _rng, ids, targets_np = live_node_data(args)
+    dht = Dht(lambda d, a: 0, Config(max_req_per_sec=1_000_000),
+              has_v6=False, device=None if cuda else "cpu")
+    table = dht.tables[AF]
+    table.bulk_load(ids, dht.scheduler.time(),
+                    addrs=SockAddr("127.0.0.2", 4567))
+    dht.warmup()
+    sync()
+    targets = [InfoHash(r.tobytes()) for r in IK.ids_to_bytes(targets_np)]
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    reps = 4
+
+    def resolve_split(route: str, first: int) -> dict:
+        tg = targets[first:first + reps + 1]
+        dht.find_closest_nodes_batched([tg[0]], AF)          # warm
+        sync()
+        counted = profiling.count_call(
+            lambda: dht.find_closest_nodes_batched([tg[1]], AF), (), {},
+            dev, by_caller=True)
+        counted.pop("_out")
+        walls = []
+        with profile(activities=acts) as prof:
+            for t in tg[1:]:
+                t0 = time.perf_counter()
+                dht.find_closest_nodes_batched([t], AF)
+                sync()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        out = {"route": route, "calls": reps, "host_ms_per_call": walls,
+               "dispatched_ops_per_call": counted["launches"],
+               "dispatched_top": sorted(counted["launches_by_op"].items(),
+                                        key=lambda kv: -kv[1])[:10],
+               "dispatched_by_function": list(
+                   counted["launches_by_caller"].items())[:12]}
+        if cuda:
+            split = op_launch_split(prof)
+            out.update({"per_call_device_events":
+                        split["device_events"] / reps,
+                        "per_call_device_ms": split["device_ms"] / reps,
+                        "split": split})
+        return out
+
+    snap = resolve_split("snapshot", 0)
+    require(table.churn_pending == 0, "the first resolves ran on the "
+            "snapshot")
+    dht.insert_node(InfoHash(_near_id(bytes(dht.myid), 30, b"ledger-join")),
+                    SockAddr("127.0.0.3", 4567))
+    require(table.churn_pending > 0, "a join left churn pending")
+    churn = resolve_split("churn view", reps + 1)
+    emit({"phase": "ledger_q1_split", **card, "rows": len(table),
+          "snapshot": snap, "churn": churn,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def storm_plan():
+    """benchmarks/exp_chaos_r18.py's arc: a join/leave storm, a refill,
+    then an ASYMMETRIC partition (g0 -> g1 blocked) that heals when its
+    phase ends."""
+    from opendht_tpu_torch import chaos
+    return chaos.FaultPlan([
+        chaos.Phase("storm", start=1.0, duration=3.0,
+                    storm=chaos.Storm(leave_rate=0.10, join_rate=0.10)),
+        chaos.Phase("refill", start=4.0, duration=3.0,
+                    storm=chaos.Storm(join_rate=0.5)),
+        chaos.Phase("split", start=8.0, duration=6.0,
+                    partition=chaos.Partition(block=[("g0", "g1")])),
+    ], seed=3)
+
+
+def swarm_phase(args, dev, card, sync) -> None:
+    """The device swarm (module docstring, phase 16): the storm arc at
+    --swarm-n nodes, its replay, and the small arc against the numpy
+    oracle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from opendht_tpu_torch.ops import swarm
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    S, K, M, T = args.swarm_n, 64, 32, 22
+
+    def arc(traced: bool):
+        sim = swarm.SwarmSim(storm_plan(), n_nodes=S, n_keys=K, n_groups=2,
+                             seed=5, sweep_sample=M, repub_every=2,
+                             device=dev)
+        sync()
+        rows, ticks = [], []
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if cuda else [])
+        prof = profile(activities=acts) if traced else None
+        if prof is not None:
+            prof.__enter__()
+        try:
+            for _ in range(T):
+                phases = ",".join(p.name for p in
+                                  sim.plan.phases_at(sim.t)) or "-"
+                t0 = time.perf_counter()
+                m = sim.tick()
+                sync()
+                ticks.append((time.perf_counter() - t0) * 1e3)
+                m.update(sim.probe())
+                m["phases"] = phases
+                rows.append(m)
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+        return sim, rows, ticks, prof
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    sim, rows, ticks, _ = arc(False)
+    peak = (torch.cuda.max_memory_allocated() - base if cuda
+            else "not measured")
+    # the acceptance arc: healthy, degraded under the cut, healed
+    require(rows[0]["verdict"] == "healthy", f"swarm tick 0: {rows[0]}")
+    require(any(r["verdict"] != "healthy" for r in rows[9:13]),
+            "the partition degraded the invariants")
+    last = rows[-1]
+    require(last["verdict"] == "healthy" and last["lookup_success"] >= 0.95
+            and last["replica_coverage"] >= 0.95, f"swarm healed: {last}")
+    require(sum(r["n_leave"] for r in rows) > 0
+            and sum(r["n_join"] for r in rows) > 0, "storms churned")
+    # the replay: same seed, same strip, under the profiler
+    sim2, rows2, ticks2, prof = arc(True)
+    require(rows2 == rows, "the swarm arc replays identically under its "
+            "seed")
+    st1, st2 = swarm.state_to_numpy(sim.state), swarm.state_to_numpy(
+        sim2.state)
+    for k in swarm.STATE_KEYS:
+        require(np.array_equal(st1[k], st2[k]), f"replayed state {k}")
+    per_tick = device_totals(prof, cuda, T)
+    ts = sorted(ticks)
+    emit({"phase": "swarm", **card, "nodes": S, "keys": K, "sweep": M,
+          "ticks": T, "seed": 5, "repub_every": 2,
+          "tick_ms": {"p50": ts[T // 2], "p99": ts[min(T - 1,
+                                                        int(0.99 * T))],
+                      "all": ticks},
+          "replay_tick_ms_under_profiler": ticks2,
+          "per_tick": {k: per_tick[k] for k in DEVICE_TOTALS},
+          "per_tick_top": per_tick["top"],
+          "peak_device_bytes": peak,
+          "strip": [{k: r[k] for k in ("phases", "n_alive", "n_leave",
+                                       "n_join", "lookup_success",
+                                       "replica_coverage", "model_err",
+                                       "verdict")} for r in rows],
+          "replayed_identically": True,
+          "record": smoke_record("swarm_storm", {
+              "tick_ms_p50": ts[T // 2], "nodes": S, "ticks": T,
+              "device": card})})
+
+    # the small arc: the device step against the numpy oracle, tick by
+    # tick, on the same drawn bits
+    kw = dict(n_nodes=4096, n_keys=48, n_groups=2, seed=5, sweep_sample=M,
+              repub_every=2)
+    d = swarm.SwarmSim(storm_plan(), device=dev, **kw)
+    h = swarm.SwarmSim(storm_plan(), device=dev, oracle=True, **kw)
+    for t in range(8):
+        md, mh = d.tick(), h.tick()
+        require(md == mh, f"oracle arc tick {t}: {md} vs {mh}")
+        sd = swarm.state_to_numpy(d.state)
+        for k in swarm.STATE_KEYS:
+            require(np.array_equal(sd[k], h.state[k]),
+                    f"oracle arc tick {t}: state {k}")
+        require(d.probe() == h.probe(), f"oracle arc tick {t}: probes")
+    emit({"phase": "swarm_oracle", **card, "nodes": 4096, "keys": 48,
+          "ticks": 8, "equal": True,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def bench_phase(args, dev, card) -> None:
+    """The bench twin once (module docstring, phase 17)."""
+    from opendht_tpu_torch import bench
+    out = bench.measure(dev, N=args.n, Q=args.q,
+                        samples=5 if dev.type == "cuda" else 1)
+    emit({"phase": "bench", **out})
+    require(out["exact"], "bench: the cascade's rows equal the full scan")
+    # the soft wall-clock ceilings over this run's records: warnings only
+    from opendht_tpu_torch import perf_gate
+    warns: list = []
+    perf_gate.check_timing(perf_gate._load_budgets(perf_gate.BUDGETS),
+                           os.environ["OPENDHT_TPU_SMOKE_RECORD_DIR"], warns)
+    emit({"phase": "timing_gate",
+          "records": os.environ["OPENDHT_TPU_SMOKE_RECORD_DIR"],
+          "warnings": warns})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000, help="table ids")
@@ -2943,7 +3276,7 @@ def main(argv=None) -> int:
                          "runner phases)")
     ap.add_argument("--serve-gets", type=int, default=1000,
                     help="Dht.get calls of the serve phase's config 1")
-    ap.add_argument("--planes-keys", type=int, default=10_000,
+    ap.add_argument("--planes-keys", type=int, default=4_000,
                     help="keys the planes phase's client puts")
     ap.add_argument("--planes-gets", type=int, default=4096,
                     help="Dht.get calls of the planes phase's Zipf stream")
@@ -2951,17 +3284,23 @@ def main(argv=None) -> int:
                     help="ids of the scale phase's config 5 table")
     ap.add_argument("--scale-q", type=int, default=65_536,
                     help="queries of the scale phase's lookups")
+    ap.add_argument("--swarm-n", type=int, default=50_000,
+                    help="nodes of the swarm phase's storm arc")
     ap.add_argument("--phases", default="all",
-                    choices=("all", "churn", "serve", "runner", "planes",
-                             "scale"),
-                    help="'all', or 'churn' / 'serve' / 'runner' / "
-                         "'planes' / 'scale' to run the device, build, "
-                         "parity and main phases and then only that phase")
+                    help="'all', or a comma-separated list of late phases "
+                         "(" + ", ".join(LATE_PHASES) + ") to run after "
+                         "the device, build, parity and main phases")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on the host with the plain versions "
                          "(never prints the ok line)")
     args = ap.parse_args(argv)
+    wanted = set(args.phases.split(","))
+    if wanted - set(LATE_PHASES) - {"all"}:
+        ap.error(f"unknown phases {sorted(wanted - set(LATE_PHASES))}")
+
+    def late(name: str) -> bool:
+        return "all" in wanted or name in wanted
 
     import torch
     # -- 1. device ---------------------------------------------------------
@@ -2969,6 +3308,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if args.cpu:
+        # the rehearsal's shapes are tiny: two intra-op threads run it
+        # about as fast as all cores alone, and beside other busy torch
+        # processes (a test suite's workers) all-core OpenMP pools spin
+        # against each other and slow it twenty-fold
+        torch.set_num_threads(2)
         dev, kind, smi = torch.device("cpu"), "cpu (rehearsal)", "not measured"
     else:
         dev, kind, smi = (torch.device("cuda"), torch.cuda.get_device_name(0),
@@ -3251,29 +3595,40 @@ def main(argv=None) -> int:
                 f"find_closest k=16 allocated {peak_extra} B at peak, not "
                 f"below the {gathered_bytes} B of gathered rows")
 
-    if args.phases == "all":
+    if late("search"):
         search_phase(args, dev, card, sync)
+    if late("maintenance"):
         maintenance_phase(args, dev, card)
-    if args.phases in ("all", "churn"):
+    if late("churn"):
         churn_phase(args, dev, card, sync)
-    if args.phases in ("all", "serve"):
+    if late("serve"):
         # the serve phase's own path: its window_select launches join
         # the main path's in the kernels line
         serve_launches, serve_err = serve_phase(args, dev, card, sync)
         launches["window_select"] += serve_launches
         err["window_select"] = max(err["window_select"], serve_err)
-    if args.phases in ("all", "runner"):
+    if late("runner"):
         # the runner's path: its window_select launches join too
         launches["window_select"] += runner_phase(args, dev, card, sync)
-    if args.phases in ("all", "planes"):
+    if late("planes"):
         # the planes phase's misses launch window_select too
         launches["window_select"] += planes_phase(args, dev, card, sync)
-    if args.phases in ("all", "scale"):
+    if late("scale"):
         # the sharded resolve launches both kernels once per shard
         scale_launches, scale_err = scale_phase(args, dev, card, sync)
         for name in launches:
             launches[name] += scale_launches[name]
             err[name] = max(err[name], scale_err[name])
+    os.environ.setdefault("OPENDHT_TPU_SMOKE_RECORD_DIR", str(
+        Path(__file__).resolve().parent / "build" / "smoke_records"))
+    if late("ledger"):
+        # the ledger's lookup specs launch both kernels
+        for name, n in ledger_phase(args, dev, card, sync).items():
+            launches[name] += n
+    if late("swarm"):
+        swarm_phase(args, dev, card, sync)
+    if late("bench"):
+        bench_phase(args, dev, card)
 
     kernels = []
     for name, src_line in (("window_select",
@@ -3289,7 +3644,7 @@ def main(argv=None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
-    if args.cpu or args.phases != "all":
+    if args.cpu or "all" not in wanted:
         print("chip_smoke: CPU rehearsal or partial run finished; not a "
               "full chip run", file=sys.stderr)
         return 3

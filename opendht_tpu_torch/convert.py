@@ -298,3 +298,44 @@ def secure_dht_from_jax(src, send_fn, scheduler=None, *, device=None):
             crypto.PublicKey(pk.export_der())
     dst.forward_all = src.forward_all
     return dst
+
+
+def _plan_from_jax(plan):
+    """A port ``chaos.FaultPlan`` with the phases, membership and seed of
+    a JAX one (the plan grammar's dataclasses, field for field)."""
+    from . import chaos
+
+    def part(p):
+        return None if p is None else chaos.Partition(
+            block=[tuple(b) for b in p.block], symmetric=p.symmetric)
+    phases = [chaos.Phase(
+        ph.name, start=ph.start, duration=ph.duration,
+        rules=[chaos.LinkRule(**vars(r)) for r in ph.rules],
+        partition=part(ph.partition),
+        storm=None if ph.storm is None else chaos.Storm(**vars(ph.storm)),
+        poison=None if ph.poison is None else chaos.Poison(**vars(ph.poison)))
+        for ph in plan.phases]
+    return chaos.FaultPlan(phases, membership=dict(plan.membership),
+                           seed=plan.seed)
+
+
+def swarm_from_jax(sim, *, device=None):
+    """A port ``ops.swarm.SwarmSim`` carrying a JAX ``SwarmSim``: its
+    plan, its knobs, its state arrays (as numpy), its tick counters and
+    the phase names and verdict it last saw, on ``device`` (None = the
+    card; a JAX host-oracle sim becomes a port oracle sim).  The JAX
+    sim's ``jax.random`` key cannot be carried: feed both sims the same
+    bits through ``SwarmSim.advance``."""
+    from .ops import swarm
+    state = {k: np.asarray(sim.state[k]) for k in swarm.STATE_KEYS}
+    dst = swarm.SwarmSim(
+        _plan_from_jax(sim.plan), n_nodes=int(state["ids"].shape[0]),
+        n_keys=int(state["keys"].shape[0]), n_groups=sim.n_groups,
+        tick_dt=sim.tick_dt, sweep_sample=sim.sweep_sample,
+        repub_every=sim.repub_every, repub_rate=sim.repub_rate,
+        stale_age=sim.stale_age, device=device, oracle=not sim.device,
+        _state=state)
+    dst.t, dst.tick_no = sim.t, sim.tick_no
+    dst._verdict = sim._verdict
+    dst._phase_names = tuple(sim._phase_names)
+    return dst

@@ -59,8 +59,8 @@ to the JAX package's (``tests/test_torch_search.py``):
 - *Survivor compaction.*  ``jnp.nonzero(size=C, fill_value=0)`` is
   ``torch.nonzero`` cut or zero-padded to C (a sync).
 
-Left out: the JAX package's waterfall and kernel-ledger hooks of
-``record_wave`` (their modules are not ported) and the sharded twins.
+The table-sharded twins (``tp_`` / ``dp_simulate_lookups``) live in
+``parallel/sharded.py``.
 """
 
 from __future__ import annotations
@@ -504,13 +504,17 @@ _TRACE_MAX_ROUND_SPANS = 64
 
 
 def record_wave(out, elapsed_s: float, wave_width: int, *,
-                mode: str = "single") -> None:
+                mode: str = "single", mesh_t: int = 1) -> None:
     """Feed one finished search wave into the telemetry registry
     (``dht_search_wave_seconds``, ``dht_search_wave_width``,
     ``dht_search_hops``, and ``dht_search_round_seconds`` = wave time /
-    deepest hop count) and, when a trace context is active, record one
-    ``dht.search.wave`` span with one ``dht.search.round`` child per
-    round.  Host-side only: the wave ran before this call."""
+    deepest hop count) and the waterfall's device stage (split
+    compile-vs-execute per launch shape, mode x width); when a trace
+    context is active, record one ``dht.search.wave`` span — carrying
+    the kernel ledger's device-cost attributes (``profiling.wave_attrs``,
+    empty until the ledger is computed; ``mesh_t`` = the table shards a
+    tp wave ran over) — with one ``dht.search.round`` child per round.
+    Host-side only: the wave ran before this call."""
     reg = telemetry.get_registry()
     reg.histogram("dht_search_wave_seconds", mode=mode).observe(elapsed_s)
     reg.histogram("dht_search_wave_width", mode=mode).observe(wave_width)
@@ -522,11 +526,25 @@ def record_wave(out, elapsed_s: float, wave_width: int, *,
             elapsed_s / rounds)
     tr = tracing.get_tracer()
     ctx = tracing.current()
+    # the search wave IS the device stage of every op it carries: feed
+    # the waterfall the same timed span, the first launch of each shape
+    # as device_compile (the port builds its kernels at first use)
+    from .. import waterfall
+    wf = waterfall.get_profiler()
+    if wf.enabled:
+        key = ("search", mode, int(wave_width))
+        stage = ("device_compile" if wf.first_launch(key)
+                 else "device_wait")
+        wf.observe(stage, elapsed_s,
+                   exemplar=tracing.current_trace_hex())
     if tr.enabled and ctx is not None:
         start = time.time() - elapsed_s
+        from .. import profiling
+        cost = profiling.wave_attrs(int(wave_width), rounds, elapsed_s,
+                                    mode=mode, mesh_t=mesh_t)
         wave_ctx = tr.record("dht.search.wave", start, elapsed_s,
                              parent=ctx, mode=mode, width=int(wave_width),
-                             rounds=rounds)
+                             rounds=rounds, **cost)
         if wave_ctx is not None and 0 < rounds <= _TRACE_MAX_ROUND_SPANS:
             per_round = elapsed_s / rounds
             for i in range(rounds):

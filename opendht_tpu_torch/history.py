@@ -48,8 +48,7 @@ Import-light by design (stdlib + the telemetry/tracing spine) so the
 recorder runs in minimal containers and pure-registry unit tests.
 
 A copy of the JAX package's ``history.py`` with its behaviour
-unchanged, except that a bundle's ``kernels`` entry stays empty: the
-kernel cost ledger (``profiling``) is not ported (ROADMAP A.3).
+unchanged.
 """
 
 from __future__ import annotations
@@ -586,6 +585,10 @@ def build_bundle(*, reason: str = "on_demand", node_id: str = "",
         }
     except Exception:
         pass
-    # the kernel cost ledger's entry (profiling.get_ledger) is not
-    # ported: ROADMAP A.3
+    try:
+        from . import profiling
+        if profiling.ledger_computed():
+            bundle["kernels"] = profiling.get_ledger().snapshot()
+    except Exception:
+        pass
     return bundle

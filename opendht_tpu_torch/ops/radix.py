@@ -158,6 +158,49 @@ def maintenance_sweep(self_id, ids, valid, last_reply, now, age,
     return counts, last, stale, targets
 
 
+def maintenance_sweep_batched(self_ids, ids, valid, last_reply, now, age):
+    """:func:`maintenance_sweep`'s occupancy and staleness for M nodes at
+    once — the JAX package's ``jax.vmap(maintenance_sweep)`` over a
+    batch of ``self_ids`` (the swarm stepper's rotating sample).
+
+    ``self_ids`` keys [M, 5]; ``ids`` keys [N, 5]; ``valid`` bool [M, N]
+    (row m: which ids node m sees); ``last_reply`` [N] seconds (float32,
+    shared); ``now`` / ``age`` host floats, taken as float32.  Returns
+    (counts int32 [M, 160], stale bool [M, 160]), row m equal to
+    ``maintenance_sweep(self_ids[m], ids, valid[m], ...)``'s.  The refresh
+    targets and the per-bucket last reply are not computed: the swarm
+    reads neither.
+
+    One launch chain for the batch, not M sweeps.  A bucket is stale
+    when it is occupied and its latest reply is older than ``now - age``:
+    no row of it replied at or after that threshold.  So staleness is a
+    count too, and both come from one integer scatter over [M, 2·161]
+    bins (bucket, and whether the row replied in time): exact, with no
+    float atomics."""
+    dev = self_ids.device
+    M = self_ids.shape[0]
+    nb = ID_BITS + 1
+    b = torch.clamp(common_bits(self_ids[:, None, :], ids[None, :, :]),
+                    max=MAX_BUCKET)
+    bm = torch.where(valid, b, ID_BITS).long()
+    ls = _reply_times(last_reply)
+    thr = np.float32(now) - np.float32(age)
+    # last < thr fails exactly when some valid replied row has ls >= thr
+    # (rows that never replied read -inf, below any finite threshold)
+    fresh = valid & (ls > 0) & ~(ls < float(thr))
+    slot = (torch.arange(M, device=dev)[:, None] * (2 * nb) + bm
+            + nb * fresh.long())
+    bins = torch.zeros(M * 2 * nb, dtype=torch.int32, device=dev)
+    bins.index_add_(0, slot.reshape(-1),
+                    torch.ones(slot.numel(), dtype=torch.int32, device=dev))
+    bins = bins.view(M, 2, nb)[:, :, :ID_BITS]
+    counts = bins.sum(dim=1, dtype=torch.int32)
+    # a bucket with no replied row reads -inf: stale only below a
+    # threshold above -inf (as ``-inf < now - age`` in the single sweep)
+    stale = (counts > 0) & (bins[:, 1] == 0) & bool(-np.inf < thr)
+    return counts, stale
+
+
 def random_id_in_bucket(self_id: torch.Tensor, bucket,
                         generator=None) -> torch.Tensor:
     """Uniform random id in bucket ``bucket``'s range: shares the first

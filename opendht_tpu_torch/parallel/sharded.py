@@ -542,7 +542,7 @@ def tp_simulate_lookups(mesh: Mesh, sorted_ids=None, n_valid=None,
         out = fn(state, placed, seed)
         if mesh.merge_device.type == "cuda":
             torch.cuda.synchronize(mesh.merge_device)
-    record_wave(out, sp.elapsed, Q, mode="tp")
+    record_wave(out, sp.elapsed, Q, mode="tp", mesh_t=mesh.shape["t"])
     return out
 
 

@@ -22,8 +22,7 @@ include/opendht/dhtrunner.h:51-497, src/dhtrunner.cpp):
 A copy of the JAX package's ``runtime/runner.py`` with its behaviour
 unchanged, except where a cut is marked with the ROADMAP item that
 restores it: the proxy backend (``enable_proxy``,
-``RunnerConfig(proxy_server=)`` raise NotImplementedError: A.6) and the
-OPEN-bound tracker and the kernel ledger's gauges (A.3).
+``RunnerConfig(proxy_server=)`` raise NotImplementedError: A.6).
 The device is explicit: ``run(device=None)`` means the CUDA card and
 raises when there is none; tests pass ``device="cpu"``.  Every table
 and device call runs on the DHT thread (or the caller of ``loop()``);
@@ -42,8 +41,8 @@ import threading
 import time as _time
 from typing import Callable, List, Optional, Tuple
 
-from .. import (health as _health, history as _history, telemetry, tracing,
-                waterfall as _waterfall)
+from .. import (health as _health, history as _history, profiling,
+                telemetry, tracing, waterfall as _waterfall)
 from .._device import resolve_device
 from ..infohash import InfoHash
 from ..sockaddr import SockAddr
@@ -154,6 +153,7 @@ class DhtRunner:
 
     def __init__(self):
         self._dht: Optional[SecureDht] = None
+        self._open_bounds = None
         self._health: "_health.NodeHealth | None" = None
         self._history: "_history.MetricsHistory | None" = None
         self._sock4: Optional[_socket.socket] = None
@@ -279,8 +279,18 @@ class DhtRunner:
                     self._on_health_transition
             self._health.attach(dht.scheduler)
 
-        # the OPEN-bound tracker (waterfall.OpenBoundTracker) is not
-        # ported: ROADMAP A.3
+        # OPEN-bound tracker: periodic live comparison of achieved wave
+        # p50 / occupancy / churny-static ratio against the open bounds
+        # of the port's budgets, on the same scheduler (registry reads
+        # only — no device work); its status follows the node's device,
+        # and each tick re-drops the settling record
+        self._open_bounds = None
+        wcfg = getattr(dht_config, "waterfall", None)
+        period = getattr(wcfg, "open_bound_period", 0.0) if wcfg else 0.0
+        if period > 0:
+            self._open_bounds = _waterfall.OpenBoundTracker(
+                device=dht.device)
+            self._open_bounds.attach(dht.scheduler, period=period)
 
         self.running = True
         if config.threaded:
@@ -786,8 +796,12 @@ class DhtRunner:
                     continue
                 for field, v in st.to_dict().items():
                     reg.gauge("dht_routing_" + field, family=fam).set(v)
-        # the kernel cost ledger's dht_kernel_* gauges
-        # (profiling.maybe_export) are not ported: ROADMAP A.3
+        # kernel cost ledger: publish dht_kernel_* gauges when the
+        # ledger has been computed, or compute it on the node's device
+        # first when OPENDHT_TPU_LEDGER=1 arms eager mode — a no-op flag
+        # check otherwise, so a bare scrape stays cheap
+        dev = getattr(self._dht, "device", None) if self._dht else None
+        profiling.maybe_export(reg, device=dev)
         return reg.snapshot()
 
     def get_health(self) -> dict:
@@ -831,7 +845,6 @@ class DhtRunner:
         in ONE JSON artifact — the reference's ``dumpTables`` instant,
         retained and machine-readable; captured automatically (with
         ``refresh=False``) on every health transition to unhealthy.
-        Its kernel-ledger entry stays empty (ROADMAP A.3).
 
         ``refresh=False`` skips the routing-gauge refresh, which posts
         to the DHT thread and waits — REQUIRED when called FROM that
@@ -928,11 +941,13 @@ class DhtRunner:
     def get_profile(self) -> dict:
         """The per-op latency waterfall snapshot: per-stage
         ``dht_stage_seconds`` histograms with p50/p95/p99 and bucket
-        exemplars, the stage budgets and the recent per-op
-        decomposition records (the OPEN-bound comparison is not
-        ported: ROADMAP A.3)."""
+        exemplars, the stage budgets, the recent per-op decomposition
+        records and the live OPEN-bound comparison."""
         try:
-            return _waterfall.get_profiler().snapshot()
+            doc = _waterfall.get_profiler().snapshot()
+            if self._open_bounds is not None:
+                doc["open_bounds"] = self._open_bounds.snapshot()
+            return doc
         except Exception:
             return {"enabled": False}
 

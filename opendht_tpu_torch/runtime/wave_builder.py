@@ -1,14 +1,14 @@
 """Continuous-batching ingest: coalesce live lookups into shared waves.
 
 The port of the JAX package's ``runtime/wave_builder.py``, with its
-behaviour unchanged but for two points.  A wave's launch is
+behaviour unchanged but for one point.  A wave's launch is
 ``Dht.find_closest_nodes_launch``, whose handle's ``ready()`` is the
 port's CUDA-event probe (``core/table.py`` ``PendingLookup.ready``:
 ``event.query()``, no host sync), so the drainer polls the card the way
-the JAX builder polls an async dispatch.  And the ``dht.search.wave``
-span carries no device-cost attributes: the JAX builder takes them from
-its XLA cost ledger (``profiling.ingest_wave_attrs``), which has no
-torch counterpart yet.  The planes' hooks are the JAX builder's: the
+the JAX builder polls an async dispatch.  The ``dht.search.wave``
+span's device-cost attributes come from the port's kernel ledger
+(``profiling.ingest_wave_attrs``).  The planes' hooks are the JAX
+builder's: the
 keyspace observatory sees each wave's targets, the hot-value cache's
 probe serves cached gets before the launch, and the buffered stored
 puts ride each fire's listener flush, and each wave carries the reshard
@@ -685,9 +685,14 @@ class WaveBuilder:
         wave_ctx = None
         wave_end = t_avail
         if tr.enabled and any(e.ctx is not None for e in entries):
-            # no device-cost attrs: the JAX builder reads them from its
-            # XLA cost ledger, which has no torch counterpart yet.
-            # The span covers dispatch → results materialized (for a
+            # device-cost attrs from the kernel ledger's canonical
+            # coalesced-launch entry, per-device table traffic scaled by
+            # 1/t when the resolve ran row-sharded (empty dict until the
+            # ledger is computed — a flag check on the hot path, as
+            # record_wave's wave_attrs)
+            from .. import profiling
+            cost = profiling.ingest_wave_attrs(len(entries), shard_t)
+            # the span covers dispatch → results materialized (for a
             # pipelined wave that includes the in-flight overlap window
             # — the wall truth); pipeline_slot = waves already in
             # flight when this one launched (0 = head of the pipeline)
@@ -698,7 +703,7 @@ class WaveBuilder:
                 mode="ingest", occupancy=len(entries), af=af, k=k,
                 table_shard_t=shard_t, pipeline_slot=slot,
                 reshard_gen=(rs.layout.gen if rs is not None
-                             and rs.layout is not None else 0))
+                             and rs.layout is not None else 0), **cost)
         for e, nodes in zip(entries, results):
             if wave_ctx is not None and e.ctx is not None:
                 # span covers submit → scatter, anchored on the entry's

@@ -1,11 +1,11 @@
-"""Per-op latency waterfall: the always-on stage profiler.
+"""Per-op latency waterfall: the always-on stage profiler and the
+OPEN-bound tracker.
 
 A copy of the JAX package's ``waterfall.py`` with its behaviour
-unchanged, except that the OPEN-bound tracker (``OpenBoundTracker``) is
-left out: it compares live numbers against the accelerator bounds of the
-JAX package's ``perf_budgets.json``, which were set for a TPU, and only
-the runner (not ported yet) attaches it.  The text below is the
-original's, less that tracker.
+unchanged, except that :class:`OpenBoundTracker` reads the port's own
+budgets (``opendht_tpu_torch/perf_budgets.json``, whose time and rate
+targets stay null until a run on the card settles them) and takes its
+status from the node's device instead of the JAX backend.
 
 Observability used to report one opaque number per op — a host
 wall-clock around ``block_until_ready`` (``dht_op_seconds``).  This
@@ -61,6 +61,14 @@ worst-stage p95/budget ratio feeding the health engine as the
 degrade-only ``stage_budget`` signal (a slow stage is an efficiency
 problem, not a liveness one).
 
+**OPEN-bound tracking**: :class:`OpenBoundTracker` continuously
+compares achieved wave p50 / occupancy / churny-static ratio against
+the seven ``open: true`` entries of the port's perf_budgets.json and
+exports ``dht_open_bound{key=, status=}`` gauges.  On the card it drops
+a ready-to-commit settling record into ``$OPENDHT_TPU_SMOKE_RECORD_DIR``
+(status="candidate"); a CPU node exercises the same record path with
+status="unsettled".
+
 Surfaces: proxy ``GET /profile`` (+ ``?fmt=folded`` flamegraph stacks),
 the ``profile`` REPL cmd, a ``waterfall`` section in ``dhtscanner
 --json``, ``dhtmon --max-stage STAGE=SEC``, and — because the history
@@ -75,6 +83,8 @@ concern — same documented aggregation rule as telemetry.py.
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time as _time
 from collections import deque
@@ -85,7 +95,7 @@ from . import telemetry
 
 __all__ = [
     "STAGES", "STAGE_ALIASES", "DEFAULT_STAGE_BUDGETS", "WaterfallConfig",
-    "StageProfiler", "get_profiler",
+    "StageProfiler", "OpenBoundTracker", "OPEN_BOUND_KEYS", "get_profiler",
 ]
 
 #: the waterfall stages, in serving-path order (rpc_wait overlaps the
@@ -304,6 +314,215 @@ class StageProfiler:
             if us > 0:
                 lines.append("dht;op;%s %d" % (s, us))
         return "\n".join(lines) + ("\n" if lines else "")
+
+
+OPEN_BOUND_KEYS = (
+    "cache_flood_p50", "churny_static_ratio", "ingest_wave_occupancy",
+    "listener_wave_1m", "maintenance_sweep_config4", "shard_wave_10m",
+    "wave_p50_ms_1024",
+)
+
+
+def _port_budgets_path() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "perf_budgets.json")
+
+
+def _agg_quantile(series: dict, q: float, want: Optional[dict] = None):
+    """Quantile over the merged buckets of every label series of one
+    histogram family (optionally filtered to series whose labels
+    contain ``want``); None when nothing matched or nothing observed."""
+    total = 0
+    acc: Dict[int, int] = {}
+    for key, h in series.items():
+        if want and any(dict(key).get(k) != v for k, v in want.items()):
+            continue
+        c, _s, b = h.raw()
+        total += c
+        for i, n in b.items():
+            acc[i] = acc.get(i, 0) + n
+    if total <= 0:
+        return None
+    return telemetry.quantile_from_buckets(sorted(acc.items()), total, q)
+
+
+class OpenBoundTracker:
+    """Live comparison of achieved serving metrics against the seven
+    ``open: true`` bounds of the port's budgets (see module docstring).
+
+    ``status`` is decided once from the node's ``device`` (None = the
+    card, which must then be present): ``"unsettled"`` on the CPU (the
+    measurement exists but cannot settle the bound), ``"candidate"`` on
+    the card (the settling record is ready to commit) — fixed per run so
+    the gauge's label set never churns."""
+
+    def __init__(self, reg: Optional[telemetry.MetricsRegistry] = None,
+                 budgets_path: Optional[str] = None, *, device=None):
+        from ._device import resolve_device
+        self._reg = reg or telemetry.get_registry()
+        self._job = None
+        self._sched = None
+        self.period = 5.0
+        path = budgets_path or _port_budgets_path()
+        self.bounds: Dict[str, dict] = {}
+        try:
+            with open(path) as fh:
+                doc = json.load(fh)
+            self.bounds = {k: v for k, v in
+                           (doc.get("open_bounds") or {}).items()
+                           if v.get("open")}
+        except (OSError, ValueError):
+            pass                    # no budgets file: tracker degrades
+        self.platform = resolve_device(device).type
+        self.status = ("unsettled" if self.platform == "cpu"
+                       else "candidate")
+        self._g = {k: self._reg.gauge("dht_open_bound", key=k,
+                                      status=self.status)
+                   for k in self.bounds}
+        self._last: Dict[str, Optional[float]] = {}
+
+    # -------------------------------------------------------- measurements
+    def _measure(self, key: str) -> Optional[float]:
+        """The bound's live measurement off the registry (None =
+        nothing observed yet); units follow the budget entry's metric
+        text — milliseconds for the p50 bounds, a ratio for
+        churny_static_ratio, a mean for ingest_wave_occupancy."""
+        reg = self._reg
+        if key == "wave_p50_ms_1024":
+            p = _agg_quantile(reg.series("dht_search_wave_seconds"), 0.5,
+                              {"mode": "single"})
+            return None if p is None else p * 1e3
+        if key == "shard_wave_10m":
+            p = _agg_quantile(reg.series("dht_search_wave_seconds"), 0.5,
+                              {"mode": "tp"})
+            return None if p is None else p * 1e3
+        if key == "maintenance_sweep_config4":
+            p = _agg_quantile(reg.series("dht_maintenance_sweep_seconds"),
+                              0.5)
+            return None if p is None else p * 1e3
+        if key == "churny_static_ratio":
+            static = _agg_quantile(reg.series("dht_search_wave_seconds"),
+                                   0.5)
+            churn = _agg_quantile(reg.series("dht_churn_lookup_seconds"),
+                                  0.5)
+            if static is None or churn is None or static <= 0:
+                return None
+            # the budget's ratio is churny/static THROUGHPUT >= 0.6,
+            # i.e. static p50 latency / churny p50 latency
+            return static / churn
+        if key == "ingest_wave_occupancy":
+            # prefer the pipeline observatory's MEASURED
+            # device-occupancy gauge (fraction of wall clock with >= 1
+            # wave in flight, windowed on the history cadence) — the
+            # bound tracks live utilization now, not a settling command
+            # alone.  -1 is the gauge's "unknown" sentinel; fall back
+            # to the wave-width histogram mean until it goes live.
+            for _k, g in reg.series("dht_pipeline_occupancy").items():
+                if g.value >= 0.0:
+                    return float(g.value)
+            occ = None
+            for _k, h in reg.series("dht_ingest_wave_occupancy").items():
+                c, s, _b = h.raw()
+                if c > 0:
+                    occ = s / c
+            return occ
+        if key == "cache_flood_p50":
+            p = _agg_quantile(reg.series("dht_op_seconds"), 0.5,
+                              {"op": "get"})
+            return None if p is None else p * 1e3
+        if key == "listener_wave_1m":
+            # the batched listener-match launch latency: one wave's
+            # stored puts matched against a million-listener table
+            p = _agg_quantile(reg.series("dht_listener_match_seconds"),
+                              0.5)
+            return None if p is None else p * 1e3
+        return None
+
+    def refresh(self) -> dict:
+        """Recompute every bound's measurement and push the
+        ``dht_open_bound{key=, status=}`` gauges (-1 = no measurement
+        available yet — gauges have no 'unknown', so the sentinel keeps
+        the series live from boot)."""
+        out = {}
+        for key in self.bounds:
+            v = self._measure(key)
+            self._last[key] = v
+            self._g[key].set(-1.0 if v is None else v)
+            out[key] = {
+                "status": self.status,
+                "value": v,
+                "metric": self.bounds[key].get("metric", ""),
+                "target": self.bounds[key].get("target", ""),
+            }
+        return out
+
+    def snapshot(self) -> dict:
+        return {
+            "platform": self.platform,
+            "status": self.status,
+            "period": self.period,
+            "bounds": self.refresh(),
+        }
+
+    # ----------------------------------------------------- settling record
+    def write_record(self, record_dir: Optional[str] = None) -> Optional[str]:
+        """Drop the settling record into ``$OPENDHT_TPU_SMOKE_RECORD_DIR``
+        (or ``record_dir``): one JSON doc per process with every bound
+        that has a live measurement.  On the card this is the
+        ready-to-commit evidence that settles a bound; a CPU node writes
+        the identical shape with status="unsettled", so the tests
+        exercise the path.  Returns the path (None when
+        no dir is configured or nothing measured yet)."""
+        d = record_dir or os.environ.get("OPENDHT_TPU_SMOKE_RECORD_DIR")
+        if not d or not self.bounds:
+            return None
+        measured = {k: v for k, v in self._last.items() if v is not None}
+        if not measured:
+            return None
+        doc = {
+            "name": "open_bounds",
+            "platform": self.platform,
+            "status": self.status,
+            "time": _time.time(),
+            "bounds": {
+                k: {"value": measured[k],
+                    "metric": self.bounds[k].get("metric", ""),
+                    "settle": self.bounds[k].get("settle", ""),
+                    "status": self.status}
+                for k in sorted(measured)
+            },
+        }
+        try:
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(d, "open_bounds.json")
+            with open(path, "w") as fh:
+                json.dump(doc, fh, indent=1, sort_keys=True)
+                fh.write("\n")
+            return path
+        except OSError:
+            return None
+
+    # ----------------------------------------------------------- scheduling
+    def attach(self, scheduler, period: Optional[float] = None) -> None:
+        """Periodic refresh on the node scheduler (the same thread as
+        every other observatory tick); also re-drops the settling
+        record so the freshest measurements are what a smoke harvest
+        collects."""
+        if period is not None:
+            self.period = period
+        if self.period <= 0 or self._job is not None or not self.bounds:
+            return
+        self._sched = scheduler
+        self._job = scheduler.add(scheduler.time() + self.period,
+                                  self._tick)
+
+    def _tick(self) -> None:
+        try:
+            self.refresh()
+            self.write_record()
+        finally:
+            self._job = self._sched.add(
+                self._sched.time() + self.period, self._tick)
 
 
 _global_profiler: Optional[StageProfiler] = None

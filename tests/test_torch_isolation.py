@@ -26,7 +26,10 @@ from opendht_tpu_torch.core.table import NodeTable
 from opendht_tpu_torch.infohash import InfoHash
 from opendht_tpu_torch.ops import ids as TK
 from opendht_tpu_torch.ops import radix
+from opendht_tpu_torch import bench, chaos, profiling, telemetry
+from opendht_tpu_torch.ops import swarm
 from opendht_tpu_torch.parallel import make_mesh
+from opendht_tpu_torch.waterfall import OpenBoundTracker
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -58,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
                 "runtime.wave_builder", "runtime.live_search", "waterfall",
                 "keyspace", "hotcache", "listeners", "chaos", "ops.sketch",
                 "ops.cache_probe", "ops.listener_match", "parallel",
-                "parallel.partition", "parallel.sharded", "reshard"):
+                "parallel.partition", "parallel.sharded", "reshard",
+                "profiling", "perf_gate", "bench", "ops.swarm"):
         assert f"opendht_tpu_torch.{mod}" in want
 
 
@@ -268,6 +272,17 @@ def _entry_points():
         "Dht": lambda: opendht_tpu_torch.Dht(lambda data, addr: 0),
         "make_mesh": lambda: make_mesh(2),
         "DhtRunner.run": lambda: opendht_tpu_torch.DhtRunner().run(0),
+        "SwarmSim": lambda: swarm.SwarmSim(chaos.FaultPlan([]), n_nodes=16,
+                                           n_keys=4),
+        "swarm.state_to_device": lambda: swarm.state_to_device(
+            swarm.init_swarm(1, 16, 4)),
+        "KernelLedger.compute": lambda: profiling.KernelLedger().compute(
+            ["cache_probe"]),
+        "KernelLedger.measure": lambda: profiling.KernelLedger().measure(
+            ["cache_probe"]),
+        "bench.measure": lambda: bench.measure(),
+        "OpenBoundTracker": lambda: OpenBoundTracker(
+            reg=telemetry.MetricsRegistry()),
     }
 
 
@@ -295,8 +310,10 @@ def test_entry_points_run_on_the_cpu_when_asked():
     assert t.maintenance_sweep(1.0)[0].size == len(t.stale_buckets(1.0))
 
 
-def _chip_smoke(*args):
+def _chip_smoke(*args, records=None):
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    if records is not None:
+        env["OPENDHT_TPU_SMOKE_RECORD_DIR"] = str(records)
     return subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
                            *args], cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=300)
@@ -308,7 +325,7 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in out.stdout
 
 
-def test_chip_smoke_rehearses_every_phase_on_the_cpu():
+def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
     out = _chip_smoke("--cpu", "--n", "5000", "--q", "128",
                       "--search-n", "20000", "--search-q", "256",
                       "--search-waves", "2", "--churn-n", "20000",
@@ -317,14 +334,20 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
                       "--serve-n", "8192", "--serve-q", "16",
                       "--serve-gets", "100", "--planes-keys", "200",
                       "--planes-gets", "600", "--scale-n", "20000",
-                      "--scale-q", "256")
+                      "--scale-q", "256", "--swarm-n", "2048",
+                      records=tmp_path)
     assert out.returncode == 3, out.stderr[-2000:]
     lines = [json.loads(l) for l in out.stdout.splitlines()
              if l.startswith("{")]
     phases = [l.get("phase") for l in lines]
     assert phases[:-1] == ["device", "main", "parity", "timing", "profile",
                            "memory", "search", "maintenance", "churn",
-                           "serve", "runner", "planes", "scale"]
+                           "serve", "runner", "planes", "scale", "ledger",
+                           "ledger_q1_split", "swarm", "swarm_oracle",
+                           "bench", "timing_gate"]
+    # the records perf_gate's soft checks read
+    assert {"bench.json", "ledger.json", "swarm_storm.json"} <= {
+        p.name for p in tmp_path.iterdir()}
     search = lines[phases.index("search")]
     assert search["lookups"] == 2 * 256
     assert search["checks"]["goldens"] == ["lut_l5", "lut_l2", "exact_l5"]
@@ -376,6 +399,17 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu():
     assert scale["tp_engine"]["t"] == 4
     assert scale["node_layout"]["q"] == 256
     assert scale["reshard_tick"]["result"]["mode"] == "virtual"
+    ledger = lines[phases.index("ledger")]
+    assert len(ledger["specs"]) == 16 and ledger["gate_failures"] == []
+    split = lines[phases.index("ledger_q1_split")]
+    assert split["churn"]["dispatched_ops_per_call"] > \
+        split["snapshot"]["dispatched_ops_per_call"] > 0
+    swarm = lines[phases.index("swarm")]
+    assert swarm["nodes"] == 2048 and len(swarm["strip"]) == 22
+    assert swarm["strip"][-1]["verdict"] == "healthy"
+    assert lines[phases.index("swarm_oracle")]["equal"]
+    bench = lines[phases.index("bench")]
+    assert bench["exact"] and bench["N"] == 5000 and bench["Q"] == 128
     kernels = lines[-1]["kernels"]
     assert [k["name"] for k in kernels] == ["window_select",
                                             "lex_topk_select"]
