@@ -145,7 +145,51 @@ Phases, one JSON line each:
              ``cryptography`` / ``argon2`` in sys.modules, or runner
              thread left alive after every runner is joined.
              (--serve-n / --serve-q size it with the serve phase.)
-13. planes — the node's planes (keyspace sketch, hot-value cache,
+13. proxy  — the periphery in front of the live node, on the card, in
+             a process of its own (as a server runs: none of the earlier
+             phases' heap or metrics series): a DhtRunner
+             (Config(max_req_per_sec=1_000_000), the JAX defaults
+             otherwise) holding live_node_data's ids (--serve-n) on its
+             DHT thread, each row answering on loopback through a
+             PeerFarm process (row i at 127.1.0.0 + i, one socket,
+             replies sent from the row's address), and a
+             DhtProxyServer(runner, port=0) in front; once the node is
+             loaded the start-up heap is frozen (gc.freeze), and the
+             dhtnode child's ledger (e) has finished before any traffic.
+             (b) REST traffic with PROXY_WINDOW requests in flight over
+             --proxy-keys keys near the node's id:
+             PROXY_STREAMS LISTEN streams attached first, a POST to every
+             key and a second to each listened key, GET /{hash} and GET
+             /{hash}/{value_id} of every key, OPTIONS and STATS /; every
+             REST get equal to the node's direct get (value ids and
+             packed bytes), every stream told of its two puts once, GET
+             /stats carrying the port ledger's dht_kernel_* gauges, GET
+             /profile's open bounds naming the device; requests/s,
+             latency by route, window_select launches and the device
+             events of a proxied get (torch.profiler).  (c) A second
+             runner on the card started with RunnerConfig(proxy_server=)
+             puts, gets and listens through the proxy, then swaps to UDP
+             and back: its listener told of each put once, get_status
+             following the backend.  (d) A PHT index (key spec name: 4,
+             kind: 1) over that proxied runner inserts --pht-entries
+             entries one after another, past MAX_NODE_ENTRY_COUNT
+             (leaves split); once it has settled every entry is looked up
+             exactly and PROXY_PHT_PREFIX_LOOKUPS inexactly, each answer
+             equal to a host model (the linearized keys rebuilt with
+             plain bit operations).  (e) ``python -X importtime -m
+             opendht_tpu_torch.tools.dhtnode`` as a child process (on the
+             card, without --cpu; --cpu only in the rehearsal), started
+             with the phase: ``kernels``, then ``b`` to the node, ``p``,
+             ``g``, ``stats``, ``q``; its kernels lines name all 16
+             ledger specs on the device, its put reaches the node, and
+             its import list holds no jax, jaxlib or opendht_tpu module.
+             Fails on any ERROR record, ingest wave failure, plane gone
+             dark, datagram off loopback or thread left alive, and on
+             the card on any packet the node dropped for its delay.
+             Its record's dht_threads (PumpTimes) times the runners'
+             DHT-thread work, scheduler jobs and garbage collections,
+             with the stacks of what ran past 0.2 s.
+14. planes — the node's planes (keyspace sketch, hot-value cache,
              listener table) on the card; the serve and runner phases
              run them too, since they are the port's defaults.  First
              the planes' device programs alone (plain torch, not TPU
@@ -180,7 +224,7 @@ Phases, one JSON line each:
              on any ERROR record, ingest wave failure or plane gone dark.
              (--planes-keys / --planes-gets size it, --serve-n the node.)
 
-14. scale  — scale-out on the card: the t-sharded table on a virtual
+15. scale  — scale-out on the card: the t-sharded table on a virtual
              mesh of t shards on cuda:0 (parallel/), the mesh/layout
              resolve and the resharder.  (a) BASELINE config 5's
              one-chip form, not cut: 64,000,000 ids from
@@ -213,7 +257,7 @@ Phases, one JSON line each:
              mode launches no kernel and no copy (profiler).
              (--scale-n / --scale-q size (a)-(c).)
 
-15. ledger — the kernel cost ledger (opendht_tpu_torch/profiling.py)
+16. ledger — the kernel cost ledger (opendht_tpu_torch/profiling.py)
              on the card: KernelLedger.compute() and .measure() of all 16
              canonical specs (launches dispatched and the CUDA kernels
              and copies one call issues, device ms as the median CUDA-
@@ -233,7 +277,7 @@ Phases, one JSON line each:
              under torch.profiler: device kernels and copies per call
              split by the aten op that launched them, the top ten by
              count and by device time, and the ops dispatched.
-16. swarm  — ops/swarm.py's storm (benchmarks/exp_chaos_r18.py's full
+17. swarm  — ops/swarm.py's storm (benchmarks/exp_chaos_r18.py's full
              arc): --swarm-n nodes (50,000), 64 keys, sweep 32, 22
              ticks, seed 5, repub_every 2 on the card: host ms per tick
              p50 / p99, per-tick device ms, kernels and copies, peak
@@ -247,7 +291,7 @@ Phases, one JSON line each:
              (swarm_step_host) on the same drawn bits: every state
              array, metric and probe equal.  The storm's tick p50 is
              written as swarm_storm.json into the smoke-record directory.
-17. bench  — python -m opendht_tpu_torch.bench once at --n x --q: its
+18. bench  — python -m opendht_tpu_torch.bench once at --n x --q: its
              JSON line (lookups/s by the chain slope, certified share,
              exactness against the full scan, the scalar baseline),
              written as bench.json into the smoke-record directory; then
@@ -269,14 +313,17 @@ e.g. ``--phases ledger,swarm``: phases 1-7, then only those).
 from __future__ import annotations
 
 import argparse
+import gc
 import hashlib
 import json
 import logging
 import os
+import re
 import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -296,7 +343,7 @@ SERVE_WINDOW = 4
 RUNNER_VALUES = 64
 # the phases after main, in their order; --phases picks some of them
 LATE_PHASES = ("search", "maintenance", "churn", "serve", "runner",
-               "planes", "scale", "ledger", "swarm", "bench")
+               "proxy", "planes", "scale", "ledger", "swarm", "bench")
 
 
 def emit(obj) -> None:
@@ -1098,6 +1145,7 @@ class PortRecords(logging.Handler):
     def __init__(self):
         super().__init__(logging.WARNING)
         self.errors, self.delay_drops, self.dark = [], [], []
+        self.drop_threads = []          # (thread ident, delay s) per drop
 
     def emit(self, record):
         msg = self.format(record)
@@ -1107,6 +1155,8 @@ class PortRecords(logging.Handler):
             self.errors.append(msg)
         elif "dropping packet with high delay" in msg:
             self.delay_drops.append(msg)
+            self.drop_threads.append((record.thread, record.args[0]
+                                      if record.args else None))
 
     def __enter__(self):
         logging.getLogger("opendht_tpu_torch").addHandler(self)
@@ -1114,6 +1164,178 @@ class PortRecords(logging.Handler):
 
     def __exit__(self, *exc):
         logging.getLogger("opendht_tpu_torch").removeHandler(self)
+
+
+class PumpTimes:
+    """Until closed: the DHT-thread work of the runners added, timed —
+    each op posted to a runner and each ``periodic`` call of its node —
+    and the interpreter's garbage collections, with every piece over
+    ``slow_s`` kept (runner or collection, what, seconds, when), so a
+    packet dropped for its delay can be traced to what held the thread.
+    Every 50 ms a sampler reads the stack of each piece running (where
+    the busy time goes, and for pieces past ``slow_s`` their own stacks)
+    and notes when it was itself held off past ``slow_s``, with what the
+    threads were running then; ``report`` lists those seen most."""
+
+    def __init__(self, slow_s: float = 0.2):
+        import collections
+        self.runners, self.slow_s = {}, slow_s
+        self.t0 = time.perf_counter()
+        self.slow, self.totals = [], {}
+        self.gc = {"collections": [0, 0, 0], "s": [0.0, 0.0, 0.0],
+                   "max_s": [0.0, 0.0, 0.0], "frozen": gc.get_freeze_count()}
+        self._gc_t = None
+        self._busy = {}             # thread ident -> (start, runner, what)
+        self.stacks = collections.Counter()
+        self.stalls = []            # the sampler's late wake-ups
+        self.busy_profile = collections.Counter()
+        self.jobs = {}              # scheduler job -> [runs, s, max s]
+        self._stop = threading.Event()
+        self._sampler = threading.Thread(target=self._sample,
+                                         name="pump-sampler", daemon=True)
+        gc.callbacks.append(self._on_gc)
+        self._sampler.start()
+
+    @staticmethod
+    def _stack(frame, depth: int) -> tuple:
+        import traceback
+        return tuple(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                     for f in traceback.extract_stack(frame)[-depth:])
+
+    #: innermost functions of a thread that waits (holds no lock)
+    IDLE = {"wait", "select", "poll", "_wait_for_tstate_lock", "accept",
+            "readinto", "recv_into", "recvfrom", "sleep", "_sample", "get",
+            "readline", "read", "wait_for", "_worker", "acquire"}
+
+    def _sample(self):
+        import traceback
+        last = time.perf_counter()
+        while not self._stop.wait(0.05):
+            now, frames = time.perf_counter(), sys._current_frames()
+            late, last = now - last - 0.05, now
+            if late > self.slow_s:
+                # the sampler was held off: list what every thread that
+                # is not waiting was running when it got back
+                names = {t.ident: t.name for t in threading.enumerate()}
+                self.stalls.append({
+                    "late_s": late, "at_s": now - self.t0, "threads": {
+                        f"{names.get(i, i)}": list(self._stack(f, 4))
+                        for i, f in frames.items()
+                        if f.f_code.co_name not in self.IDLE}})
+            for ident, (t, name, what) in list(self._busy.items()):
+                if ident in frames:
+                    # where the thread's busy time goes: its innermost
+                    # frames in the port's package
+                    own = [f"{os.path.basename(f.filename)}:{f.name}"
+                           for f in traceback.extract_stack(frames[ident])
+                           if "opendht_tpu_torch" in f.filename]
+                    self.busy_profile[(name,) + tuple(own[-3:])] += 1
+                if ident in frames and now - t >= self.slow_s:
+                    self.stacks[(name, what)
+                                + self._stack(frames[ident], 10)] += 1
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._gc_t = time.perf_counter()
+            return
+        if self._gc_t is None:
+            return
+        s, g = time.perf_counter() - self._gc_t, info["generation"]
+        self._gc_t = None
+        self.gc["collections"][g] += 1
+        self.gc["s"][g] += s
+        self.gc["max_s"][g] = max(self.gc["max_s"][g], s)
+        if s > self.slow_s:
+            self.slow.append({"runner": "gc", "what": f"generation {g}",
+                              "s": s, "at_s": time.perf_counter() - self.t0})
+
+    def close(self):
+        self._stop.set()
+        self._sampler.join()
+        if self._on_gc in gc.callbacks:
+            gc.callbacks.remove(self._on_gc)
+        self.gc["tracked_at_close"] = len(gc.get_objects())
+
+    def _timed(self, name, what, fn, *a, **kw):
+        ident = threading.get_ident()
+        t = time.perf_counter()
+        self._busy[ident] = (t, name, what)
+        try:
+            return fn(*a, **kw)
+        finally:
+            self._busy.pop(ident, None)
+            s = time.perf_counter() - t
+            tot = self.totals.setdefault(name, {
+                "ops": 0, "ops_s": 0.0, "periodic": 0, "periodic_s": 0.0})
+            kind = "periodic" if what == "periodic" else "ops"
+            tot[kind] += 1
+            tot[kind + "_s"] += s
+            if s > self.slow_s:
+                self.slow.append({"runner": name, "what": what, "s": s,
+                                  "at_s": time.perf_counter() - self.t0})
+
+    def add(self, name, runner):
+        """Time ``runner``'s posted ops and its node's periodic calls."""
+        post, dht = runner._post, runner._dht
+        periodic = dht.periodic
+
+        def timed_post(op, prio=False):
+            what = getattr(op, "__qualname__", repr(op))
+            return post(lambda active: self._timed(name, what, op, active),
+                        prio)
+
+        def timed_periodic(*a, **kw):
+            return self._timed(name, "periodic", periodic, *a, **kw)
+        runner._post = timed_post
+        dht.periodic = timed_periodic
+        self.runners[name] = runner
+        # the node's scheduler jobs (each re-adds itself: wrapped then)
+        sched = dht.scheduler
+        add = sched.add
+
+        def timed_add(t, func):
+            if getattr(func, "_pump_timed", False):
+                return add(t, func)
+            what = f"{name} {getattr(func, '__qualname__', repr(func))}"
+
+            def job():
+                t0 = time.perf_counter()
+                try:
+                    return func()
+                finally:
+                    s = time.perf_counter() - t0
+                    j = self.jobs.setdefault(what, [0, 0.0, 0.0])
+                    j[0] += 1
+                    j[1] += s
+                    j[2] = max(j[2], s)
+            job._pump_timed = True
+            return add(t, job)
+        sched.add = timed_add
+
+    def report(self, drop_threads) -> dict:
+        """The totals, the slowest pieces and the drops by runner."""
+        by_ident = {r._dht_thread.ident: n for n, r in self.runners.items()
+                    if r._dht_thread is not None}
+        drops = {}
+        for ident, delay in drop_threads:
+            d = drops.setdefault(by_ident.get(ident, "other"),
+                                 {"n": 0, "max_delay_s": 0.0})
+            d["n"] += 1
+            d["max_delay_s"] = max(d["max_delay_s"], delay or 0.0)
+        slow = sorted(self.slow, key=lambda p: -p["s"])
+        return {"totals": self.totals, "gc": self.gc,
+                "slow_over_s": self.slow_s, "n_slow": len(slow),
+                "slowest": slow[:12], "drops": drops,
+                "slow_stacks": [{"samples": n, "runner": k[0],
+                                 "what": k[1], "stack": list(k[2:])}
+                                for k, n in self.stacks.most_common(6)],
+                "sampler_stalls": sorted(self.stalls,
+                                         key=lambda p: -p["late_s"])[:8],
+                "busy_profile": [{"samples": n, "where": list(k)} for k, n
+                                 in self.busy_profile.most_common(12)],
+                "jobs": {k: {"runs": v[0], "s": v[1], "max_s": v[2]}
+                         for k, v in sorted(self.jobs.items(),
+                                            key=lambda kv: -kv[1][1])[:12]}}
 
 
 class LookupRoutes:
@@ -2002,6 +2224,776 @@ def runner_phase(args, dev, card, sync) -> int:
     return launches
 
 
+# ---- the proxy phase (phase 13) ----------------------------------------
+# LISTEN streams among the proxy phase's REST keys (--proxy-keys), the
+# REST requests its client keeps in flight, and the PHT's inexact
+# lookups.  The PHT is one index, its inserts one after another: two
+# indexes over one DHT share their trie nodes' keys (Prefix.hash leaves
+# the index name out) and both write canary value id 1 there, so one
+# replaces the other's canary (ROADMAP C.3)
+PROXY_STREAMS = 16
+PROXY_WINDOW = 4
+PROXY_PHT_PREFIX_LOOKUPS = 32
+# the REPL script the dhtnode child reads after "kernels" and "b", its
+# key ({key}) near the node's id so the node is among its storers
+DHTNODE_SCRIPT = ("p {key} child payload", "g {key}", "stats", "q")
+# the first farm address: row i of the live node answers at this + i
+FARM_BASE = (127 << 24) | (1 << 16)
+
+
+class PeerFarm:
+    """Every row of the live node's table, answering on loopback from a
+    process of its own (so its protocol work never holds the node's
+    interpreter lock).
+
+    Row i's address is 127.1.0.0 + i (the whole 127/8 is local on
+    Linux) at one UDP port; one socket bound to every address receives
+    each request with its destination (IP_PKTINFO), a NetworkEngine
+    answers it as row i (its id set to row i's before each datagram: no
+    closer nodes, a write token, every announce and listen acknowledged)
+    and the reply leaves from row i's address.  So the node's own
+    searches, announces and listens over its rows complete as in a live
+    network, instead of expiring at rows that never answer.  The farm
+    draws the rows itself (live_node_data, --serve-n)."""
+
+    def __init__(self, args):
+        require(args.serve_n < (1 << 24) - (1 << 16),
+                "farm addresses fit 127/8")
+        self.n = args.serve_n
+        code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+                "chip_smoke.farm_serve(%d)"
+                % (str(Path(__file__).resolve().parent), args.serve_n))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        self.proc = subprocess.Popen([sys.executable, "-c", code],
+                                     stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, text=True,
+                                     env=env)
+
+    def ready(self) -> list:
+        """Wait for the farm's port; every row's address."""
+        import ipaddress
+        from opendht_tpu_torch.sockaddr import SockAddr
+        line = self.proc.stdout.readline()
+        require(line.startswith("{"), f"the farm started: {line!r}")
+        self.port = json.loads(line)["port"]
+        # one address per row, built without parsing strings
+        addrs = []
+        for i in range(self.n):
+            a = SockAddr.__new__(SockAddr)
+            a._ip = ipaddress.IPv4Address(FARM_BASE + i)
+            a._port = self.port
+            addrs.append(a)
+        return addrs
+
+    def stop(self) -> dict:
+        """End the farm; its request and error counts."""
+        try:
+            out, _ = self.proc.communicate("", timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            return {"requests": None, "errors": ["did not stop"]}
+        lines = [l for l in out.splitlines() if l.startswith("{")]
+        return json.loads(lines[-1]) if lines else {
+            "requests": None, "errors": ["no report"]}
+
+
+def farm_serve(n: int) -> None:
+    """The PeerFarm process: print the port, answer until stdin closes,
+    print the requests answered and the errors met."""
+    import select
+    import struct
+    from types import SimpleNamespace
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.net.engine import (EngineCallbacks, NetworkEngine,
+                                              RequestAnswer)
+    from opendht_tpu_torch.ops import ids as IK
+    from opendht_tpu_torch.scheduler import Scheduler
+    from opendht_tpu_torch.sockaddr import SockAddr
+    _, ids, _ = live_node_data(SimpleNamespace(serve_n=n, serve_q=1))
+    raw = IK.ids_to_bytes(ids)
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    sock.setsockopt(socket.IPPROTO_IP, socket.IP_PKTINFO, 1)
+    sock.bind(("0.0.0.0", 0))
+    src = [b""]
+
+    def send(data: bytes, dst) -> int:
+        anc = [(socket.IPPROTO_IP, socket.IP_PKTINFO,
+                struct.pack("I4s4s", 0, src[0], bytes(4)))]
+        sock.sendmsg([data], anc, 0, (str(dst.ip), dst.port))
+        return 0
+    token = b"farm"
+    eng = NetworkEngine(InfoHash(bytes(20)), 0, send, Scheduler(),
+                        EngineCallbacks(
+                            on_find_node=lambda n_, t, w:
+                                RequestAnswer(ntoken=token),
+                            on_get_values=lambda n_, h, w, q:
+                                RequestAnswer(ntoken=token)),
+                        max_req_per_sec=10**9)
+    print(json.dumps({"port": sock.getsockname()[1]}), flush=True)
+    requests, errors = 0, []
+    while True:
+        r = select.select([sock, sys.stdin], [], [], 1.0)[0]
+        if sys.stdin in r and not sys.stdin.read(1):
+            break
+        if sock not in r:
+            continue
+        try:
+            data, anc, _flags, addr = sock.recvmsg(65536, 256)
+            dst = next(c[8:12] for lvl, typ, c in anc
+                       if lvl == socket.IPPROTO_IP
+                       and typ == socket.IP_PKTINFO)
+            row = int.from_bytes(dst, "big") - FARM_BASE
+            if not 0 <= row < len(raw):
+                continue
+            src[0] = dst
+            eng.myid = InfoHash(raw[row].tobytes())
+            eng.process_message(data, SockAddr(addr[0], addr[1]))
+            requests += 1
+        except Exception as e:                 # reported to the phase
+            errors.append(repr(e))
+    sock.close()
+    print(json.dumps({"requests": requests, "errors": errors[:5],
+                      "n_errors": len(errors)}), flush=True)
+
+
+def _pht_linear(key: dict, spec: dict) -> bytes:
+    """The PHT's linearized key, rebuilt on the host (reference
+    pht.cpp:380-456): each field zero-padded to max(spec)+1 bytes with
+    the first pad bit set, the fields (by name) bit-interleaved."""
+    width = max(spec.values()) + 1
+    fields = []
+    for name in sorted(key):
+        b = bytearray(key[name]) + bytes(width - len(key[name]))
+        pad = 8 * len(key[name])
+        b[pad // 8] ^= 0x80 >> (pad % 8)
+        fields.append(int.from_bytes(bytes(b), "big"))
+    nbits, out = 8 * width, 0
+    for i in range(nbits):
+        for f in fields:
+            out = (out << 1) | ((f >> (nbits - 1 - i)) & 1)
+    return out.to_bytes(nbits * len(fields) // 8, "big")
+
+
+def _common_bits(a: bytes, b: bytes) -> int:
+    x = int.from_bytes(a, "big") ^ int.from_bytes(b, "big")
+    return 8 * len(a) - x.bit_length()
+
+
+def rest_call(port: int, method: str, path: str, body=None):
+    """One HTTP request to the proxy at 127.0.0.1:port: its status, body,
+    latency (s) and headers."""
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    data = json.dumps(body).encode() if body is not None else None
+    s = time.perf_counter()
+    c.request(method, path, body=data,
+              headers={"Content-Type": "application/json"} if data else {})
+    r = c.getresponse()
+    out = r.read()
+    lat = time.perf_counter() - s
+    headers = dict(r.getheaders())
+    c.close()
+    return r.status, out, lat, headers
+
+
+class ListenStream:
+    """A LISTEN /{hash} stream read on its own thread: every value line
+    (heartbeats apart) as JSON."""
+
+    def __init__(self, port: int, key_hex: str):
+        import http.client
+        import threading
+        self.values, self.error = [], None
+        self._c = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        self._c.request("LISTEN", "/" + key_hex)
+        self._sock = self._c.sock
+        self._r = self._c.getresponse()
+        require(self._r.status == 200, f"LISTEN /{key_hex}: "
+                f"{self._r.status}")
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+
+    def _read(self) -> None:
+        buf = b""
+        try:
+            while True:
+                chunk = self._r.read1(65536)
+                if not chunk:
+                    return
+                buf += chunk
+                while b"\n" in buf:
+                    line, buf = buf.split(b"\n", 1)
+                    obj = json.loads(line) if line.strip() else {}
+                    if "id" in obj:
+                        self.values.append(obj)
+        except Exception as e:         # closed by close(), else reported
+            self.error = e
+
+    def close(self) -> None:
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._c.close()
+        self._t.join(5)
+
+
+def _wait(pred, timeout: float = 60.0, step: float = 0.02) -> bool:
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if pred():
+            return True
+        time.sleep(step)
+    return pred()
+
+
+def _listening(runner, key, n: int = 1) -> bool:
+    """``runner`` holds ``n`` listener records on ``key``."""
+    with runner._listeners_lock:
+        recs = list(runner._listeners.values())
+    return sum(1 for r in recs if bytes(r["key"]) == bytes(key)) >= n
+
+
+def proxy_phase_in_child(args, card) -> int:
+    """Run the proxy phase in a process of its own, as a server runs: a
+    fresh interpreter, heap and metrics registry, none of what the
+    earlier phases left (their nodes' per-peer series alone are ~22,000,
+    and each history tick of the node walks every series on its
+    thread).  Passes its output lines on; returns its window_select
+    launches."""
+    here = str(Path(__file__).resolve().parent)
+    code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+            "sys.exit(chip_smoke.proxy_child())" % here)
+    proc = subprocess.Popen([sys.executable, "-c", code,
+                             json.dumps(vars(args)), json.dumps(card)],
+                            stdout=subprocess.PIPE, text=True, cwd=here)
+    launched = None
+    for line in proc.stdout:
+        if line.startswith('{"proxy_child_launches"'):
+            launched = json.loads(line)["proxy_child_launches"]
+        else:
+            print(line, end="", flush=True)
+    rc = proc.wait()
+    require(rc == 0 and launched is not None,
+            f"the proxy phase's process exited {rc}")
+    return launched
+
+
+def proxy_child() -> int:
+    """The proxy phase's process (see proxy_phase_in_child): argv holds
+    the script's arguments and the card record, as JSON."""
+    import torch
+    args = argparse.Namespace(**json.loads(sys.argv[1]))
+    card = json.loads(sys.argv[2])
+    if args.cpu:
+        torch.set_num_threads(2)
+    dev = torch.device("cpu" if args.cpu else "cuda")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    launched = proxy_phase(args, dev, card, sync)
+    print(json.dumps({"proxy_child_launches": launched}), flush=True)
+    return 0
+
+
+def proxy_phase(args, dev, card, sync) -> int:
+    """The periphery (see the module docstring, phase 13): the REST
+    proxy, the runner's proxy swap, the PHT and the dhtnode tool in
+    front of the live node.  Returns the window_select launches of its
+    proxied requests."""
+    import concurrent.futures
+    import ipaddress
+    import random
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from opendht_tpu_torch import profiling, telemetry
+    from opendht_tpu_torch.core import table as CT
+    from opendht_tpu_torch.core.value import Value
+    from opendht_tpu_torch.indexation.pht import MAX_NODE_ENTRY_COUNT, Pht
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.ops.window_select import window_select
+    from opendht_tpu_torch.proxy import (DhtProxyServer, value_from_json,
+                                         value_to_json)
+    from opendht_tpu_torch.runtime import Config, DhtRunner, RunnerConfig
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    device = None if cuda else "cpu"
+    AF = socket.AF_INET
+    reg = telemetry.get_registry()
+    failures0 = reg.counter("dht_ingest_wave_failures_total").value
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                     else [])
+    record_dir = os.environ["OPENDHT_TPU_SMOKE_RECORD_DIR"]
+    os.makedirs(record_dir, exist_ok=True)
+    legs = {}
+
+    # ---- (e), started first: the dhtnode tool as a child process ------
+    # on the card unless this is the rehearsal; -X importtime lists every
+    # module it imports (on its stderr, into the record directory); its
+    # first command, the ledger, runs while the legs below do
+    child_out = os.path.join(record_dir, "proxy_dhtnode.out")
+    child_err = os.path.join(record_dir, "proxy_dhtnode.importtime")
+    env = dict(os.environ)
+    if not cuda:
+        env["OMP_NUM_THREADS"] = "2"
+    with open(child_out, "w") as fo, open(child_err, "w") as fe:
+        child = subprocess.Popen(
+            [sys.executable, "-u", "-X", "importtime", "-m",
+             "opendht_tpu_torch.tools.dhtnode"] + ([] if cuda else ["--cpu"]),
+            stdin=subprocess.PIPE, stdout=fo, stderr=fe, text=True,
+            cwd=str(Path(__file__).resolve().parent), env=env)
+    child.stdin.write("kernels\n")
+    child.stdin.flush()
+
+    sent = {"loopback": 0, "off_loopback": []}
+    runners, streams, farm, server = [], [], None, None
+    pool = concurrent.futures.ThreadPoolExecutor(PROXY_WINDOW)
+    led = profiling.get_ledger()
+    pumps = None
+    try:
+        with PortRecords() as records, LookupRoutes(cuda, sync) as lookups:
+            # ---- (a) the live node behind its proxy, its rows a farm --
+            t0 = time.perf_counter()
+            farm = PeerFarm(args)           # starts while the node does
+            node = DhtRunner()
+            runners.append(node)
+            node.run(0, RunnerConfig(
+                dht_config=Config(max_req_per_sec=1_000_000)), device=device)
+            require(node._udp is not None, "the node's native engine")
+            udp_send = node._udp.send
+
+            def send(data, addr):
+                if ipaddress.ip_address(addr[0]).is_loopback:
+                    sent["loopback"] += 1
+                else:
+                    sent["off_loopback"].append(addr)
+                return udp_send(data, addr)
+            node._udp.send = send
+            _, ids, _ = live_node_data(args)
+            addrs = farm.ready()
+            farm_s = time.perf_counter() - t0
+            loaded = concurrent.futures.Future()
+
+            def load(dht):
+                try:
+                    dht.tables[AF].bulk_load(ids, dht.scheduler.time(),
+                                             addrs=addrs)
+                    dht.warmup()
+                    sync()
+                    loaded.set_result(len(dht.tables[AF]))
+                except Exception as e:
+                    loaded.set_exception(e)
+            node._post(load, prio=True)
+            rows = loaded.result(600)
+            # the table keeps its rows' addresses compact: these objects
+            # would otherwise stay for the cyclic collector to walk
+            addrs = None
+            # the start-up heap (the interpreter, torch, what the earlier
+            # phases left) goes out of the collector's reach, as a server
+            # freezes it once it is up: a full collection then walks only
+            # what serving allocates, not the whole heap on the node's
+            # thread
+            gc.collect()
+            gc.freeze()
+            pumps = PumpTimes()
+            pumps.add("node", node)
+            pumps.gc["threads_at_start"] = sorted(
+                t.name for t in threading.enumerate())
+            pumps.gc["series_at_start"] = sum(
+                len(v) for v in reg.snapshot().values()
+                if isinstance(v, dict))
+            require(rows == args.serve_n > CT.HOST_SCAN_MAX_ROWS,
+                    f"{rows} rows loaded past the host scan")
+            server = DhtProxyServer(node, port=0)
+            spec = "127.0.0.1:%d" % server.port
+            # the ledger's two lookup specs, so /stats has its gauges
+            led.compute(["find_closest_nodes_batched", "wave_builder_lookup"],
+                        device=dev)
+            child.stdin.write("b 127.0.0.1:%d\n" % node.get_bound_port())
+            child.stdin.flush()
+            legs["setup_s"] = time.perf_counter() - t0
+            # the child's first command, its ledger, runs on the card: the
+            # node's traffic below waits for it, to have the card alone
+            t0 = time.perf_counter()
+            require(_wait(lambda: re.search(r"^\d+ kernels on ", Path(
+                child_out).read_text(), re.M), timeout=300, step=0.25),
+                "the dhtnode child's ledger: " + Path(child_out).read_text(
+                )[-400:])
+            legs["child_ledger_wait_s"] = time.perf_counter() - t0
+            me = bytes(node.get_node_id())
+            n_keys = max(PROXY_STREAMS, args.proxy_keys)
+            keys = [InfoHash(k) for k in _near_keys(me, n_keys, 23)]
+            lat = {}
+
+            def timed(route, method, path, body=None):
+                st, out, s, hdr = rest_call(server.port, method, path, body)
+                lat.setdefault(route, []).append(s)
+                return st, out, hdr
+
+            # ---- (b) REST traffic on loopback --------------------------
+            t0 = time.perf_counter()
+            lookups.take()
+            window_select.launches = 0
+            st, _, hdr = timed("OPTIONS", "OPTIONS", "/" + keys[0].hex())
+            require(st == 200 and "LISTEN" in hdr.get(
+                "Access-Control-Allow-Methods", ""), "OPTIONS: CORS")
+            for k in keys[:PROXY_STREAMS]:
+                streams.append(ListenStream(server.port, k.hex()))
+            require(_wait(lambda: all(_listening(node, k)
+                                      for k in keys[:PROXY_STREAMS])),
+                    "every LISTEN stream attached on the node")
+
+            def post(i, vid, data):
+                v = Value(data, value_id=vid)
+                st, out, _ = timed("POST", "POST", "/" + keys[i].hex(),
+                                   value_to_json(v))
+                require(st == 200 and json.loads(out)["id"] == str(vid),
+                        f"POST /{keys[i].hex()}: {st} {out[:200]}")
+
+            t_rest = time.perf_counter()
+            list(pool.map(lambda i: post(i, 1000 + i, b"proxy %d" % i),
+                          range(n_keys)))
+            list(pool.map(lambda i: post(i, 5000 + i, b"again %d" % i),
+                          range(PROXY_STREAMS)))
+
+            def rest_get(i):
+                st, out, _ = timed("GET", "GET", "/" + keys[i].hex())
+                require(st == 200, f"GET /{keys[i].hex()}: {st}")
+                return sorted((v.id, v.get_packed()) for v in
+                              (value_from_json(json.loads(l))
+                               for l in out.splitlines() if l.strip()))
+
+            def rest_get_vid(i):
+                st, out, _ = timed("GET_vid", "GET", "/%s/%d"
+                                   % (keys[i].hex(), 1000 + i))
+                got = [json.loads(l) for l in out.splitlines() if l.strip()]
+                require(st == 200 and [o["id"] for o in got]
+                        == [str(1000 + i)], f"GET /{keys[i].hex()}/"
+                        f"{1000 + i}: {st} {got}")
+            rest_vals = list(pool.map(rest_get, range(n_keys)))
+            list(pool.map(rest_get_vid, range(n_keys)))
+            st, out, _ = timed("STATS", "STATS", "/")
+            require(st == 200 and {"putCount", "listenCount", "nodeInfo"}
+                    <= set(json.loads(out)), "STATS /")
+            rest_wall = time.perf_counter() - t_rest
+            launched = window_select.launches
+            routes = LookupRoutes.routes(lookups.take())
+
+            # each REST get against the node's direct get of the key
+            def direct(i):
+                return sorted((v.id, v.get_packed()) for v in
+                              node.get_sync(keys[i], timeout=120))
+            direct_vals = list(pool.map(direct, range(n_keys)))
+            for i in range(n_keys):
+                want = [1000 + i] + ([5000 + i] if i < PROXY_STREAMS else [])
+                require([vid for vid, _ in rest_vals[i]] == want,
+                        f"GET /{keys[i].hex()} holds the ids put: "
+                        f"{rest_vals[i]}")
+                require(rest_vals[i] == direct_vals[i], f"REST get {i} == "
+                        "the node's direct get (ids and bytes)")
+            for i, s in enumerate(streams):
+                require(_wait(lambda: len(s.values) >= 2), f"stream {i}")
+            time.sleep(0.2)
+            for i, s in enumerate(streams):
+                require([o["id"] for o in s.values]
+                        == [str(1000 + i), str(5000 + i)],
+                        f"LISTEN stream {i} heard each put once: "
+                        f"{[o['id'] for o in s.values]}")
+            # /stats and /profile serve the port's planes
+            st, out, _ = timed("GET_stats", "GET", "/stats")
+            kernel_gauges = {}
+            for line in out.decode().splitlines():
+                if line.startswith("dht_kernel_"):
+                    name, val = line.rsplit(" ", 1)
+                    kernel_gauges[name] = float(val)
+            require(st == 200 and any(v > 0 for v in kernel_gauges.values()),
+                    "GET /stats carries dht_kernel_* gauges")
+            st, out, _ = timed("GET_profile", "GET", "/profile")
+            ob = json.loads(out).get("open_bounds") or {}
+            require(st == 200 and ob.get("platform") == dev.type
+                    and ob.get("status") == ("candidate" if cuda
+                                             else "unsettled"),
+                    f"GET /profile's open bounds name the device: "
+                    f"{ob.get('platform')} {ob.get('status')}")
+            st, out, _ = timed("GET_listeners", "GET", "/listeners")
+            require(st == 200 and json.loads(out)["enabled"], "/listeners")
+            for route in ("keyspace", "reshard", "cache"):
+                st, out, _ = timed("GET_" + route, "GET", "/" + route)
+                require(st == 200 and "enabled" in json.loads(out),
+                        f"GET /{route}")
+            # device events of proxied gets
+            sync()
+            with profile(activities=acts) as prof:
+                for i in range(8):
+                    rest_call(server.port, "GET", "/" + keys[i].hex())
+                sync()
+            n_req = sum(len(v) for v in lat.values())
+            legs["rest"] = {
+                "requests": n_req, "wall_s": rest_wall,
+                "requests_per_s": n_req / rest_wall, "window": PROXY_WINDOW,
+                "latency_ms": {r: latency_ms(sorted(v))
+                               for r, v in lat.items()},
+                "equal_to_direct_get": n_keys,
+                "listen_streams": {"streams": len(streams),
+                                   "values_each": 2},
+                "window_select_launches": launched, "routes": routes,
+                "kernel_gauges": len(kernel_gauges),
+                "open_bounds": {"platform": ob["platform"],
+                                "status": ob["status"]},
+                # read once the node has stopped: the profile's parse
+                # holds the interpreter lock for most of a second
+                "device_per_proxied_get": None,
+                "delay_drops": len(records.delay_drops),
+                "seconds": time.perf_counter() - t0}
+            if cuda:
+                require(launched >= 1, "window_select launched on the "
+                        "proxied requests")
+            proxied_gets = prof
+            print(json.dumps({"proxy_rest": legs["rest"]}), file=sys.stderr,
+                  flush=True)
+
+            # ---- (c) the proxy swap -------------------------------------
+            t0 = time.perf_counter()
+            c = DhtRunner()
+            runners.append(c)
+            c.run(0, RunnerConfig(proxy_server=spec), device=device)
+            pumps.add("client", c)
+            require(_wait(lambda: c.use_proxy), "started proxied")
+            c.bootstrap("127.0.0.1", node.get_bound_port())
+            skeys = [InfoHash(k) for k in _near_keys(me, 2, 29)]
+            heard = []
+            c.listen(skeys[0], lambda vals, exp: heard.extend(
+                (v.id, v.data) for v in vals if not exp) or True
+                ).result(60)
+            require(_wait(lambda: _listening(node, skeys[0])),
+                    "the proxied listen attached")
+            require(c.put_sync(skeys[1], Value(b"put through the proxy",
+                                               value_id=71), timeout=60),
+                    "a put through the proxy")
+            require([(v.id, v.data) for v in c.get_sync(skeys[1],
+                                                        timeout=60)]
+                    == [(71, b"put through the proxy")],
+                    "a get through the proxy")
+            require(_wait(lambda: c.get_status() is
+                          c._proxy_dht.get_status()
+                          and c.get_status().name == "CONNECTED"),
+                    "get_status follows the proxy")
+            puts = []
+
+            def put_heard(i):
+                v = (900 + i, b"swap put %d" % i)
+                puts.append(v)
+                require(node.put_sync(skeys[0], Value(v[1], value_id=v[0]),
+                                      timeout=60), f"swap put {i}")
+                require(_wait(lambda: heard[-1:] == [v]),
+                        f"swap put {i} heard: {heard}")
+            put_heard(0)
+            statuses = []
+            for i, proxy in enumerate((None, spec), 1):
+                c.enable_proxy(proxy)
+                require(_wait(lambda: c.use_proxy is bool(proxy)),
+                        f"swap {i} took")
+                if proxy:
+                    require(_wait(lambda: _listening(node, skeys[0])),
+                            "the listener re-attached through the proxy")
+                    require(c.get_status() is c._proxy_dht.get_status(),
+                            "get_status follows the proxy again")
+                else:
+                    require(c._proxy_dht is None and _wait(
+                        lambda: c.get_status().name == "CONNECTED"),
+                        "back on UDP, connected")
+                    # the proxy's LISTEN handler drops the old stream at
+                    # its next heartbeat
+                    require(_wait(lambda: not _listening(node, skeys[0])),
+                            "the proxied listen detached")
+                    require(c.get_status() is max((c.status4, c.status6),
+                                                  key=lambda s: s.value),
+                            "get_status follows the UDP node")
+                statuses.append((c.use_proxy, c.get_status().name))
+                put_heard(i)
+            time.sleep(0.5)
+            require(heard == puts, f"each swap put heard once: {heard}")
+            legs["swap"] = {"swaps": 2, "puts_heard_once": len(puts),
+                            "statuses": statuses,
+                            "delay_drops": len(records.delay_drops),
+                            "seconds": time.perf_counter() - t0}
+
+            # ---- (d) the PHT over the proxied runner --------------------
+            t0 = time.perf_counter()
+            kspec = {"name": 4, "kind": 1}
+            n_pht = max(MAX_NODE_ENTRY_COUNT + 1, args.pht_entries)
+            prng = np.random.default_rng(31)
+            pht = Pht("proxy-phase", kspec, c, rng=random.Random(31))
+            host = {}                       # linearized key -> values
+            entries = []
+            for j in range(n_pht):
+                key = {"name": prng.integers(0, 256, 4, np.uint8).tobytes(),
+                       "kind": bytes([int(prng.integers(0, 4))])}
+                val = (InfoHash.get("pht-%d" % j), j + 1)
+                entries.append((key, val))
+                host.setdefault(_pht_linear(key, kspec), set()).add(
+                    (bytes(val[0]), val[1]))
+
+            def sync_op(start, timeout=120):
+                fut = concurrent.futures.Future()
+                start(lambda *a: fut.done() or fut.set_result(a))
+                return fut.result(timeout)
+            for key, val in entries:
+                ok, = sync_op(lambda cb: pht.insert(key, val, cb))
+                require(ok, f"PHT insert {key}")
+            insert_s = time.perf_counter() - t0
+            # a leaf split re-inserts the entries already stored there
+            # from split watches (listens one level deeper), after the
+            # insert that split it returned: look up once the index has
+            # settled, no proxied request for a second
+            t1, last = time.perf_counter(), -1
+            while server.stats.total_requests != last:
+                last = server.stats.total_requests
+                time.sleep(1.0)
+                require(time.perf_counter() - t1 < 120,
+                        "the PHT settled within 120 s")
+            settle_s = time.perf_counter() - t1
+
+            def lookup(key, exact):
+                got = set()
+                ok, = sync_op(lambda cb: pht.lookup(
+                    key, lambda vals, p: got.update(
+                        (bytes(h), v) for h, v in vals), cb,
+                    exact_match=exact))
+                require(ok, f"PHT lookup {key}")
+                return got
+
+            def exact(e):
+                got = lookup(e[0], True)
+                require(got == host[_pht_linear(e[0], kspec)],
+                        f"PHT exact lookup {e[0]}: {got}")
+
+            def inexact(n):
+                # an entry's key with its last name byte changed, held to
+                # the entries sharing the most leading bits with it
+                key = dict(entries[n][0])
+                key["name"] = key["name"][:3] + bytes([key["name"][3] ^ 1])
+                lin = _pht_linear(key, kspec)
+                best = max(_common_bits(lin, k) for k in host)
+                want = set().union(*(v for k, v in host.items()
+                                     if _common_bits(lin, k) == best))
+                got = lookup(key, False)
+                require(got == want, f"PHT prefix lookup {n}: {got} "
+                        f"!= {want}")
+            t1 = time.perf_counter()
+            list(pool.map(exact, entries))
+            list(pool.map(inexact, range(min(PROXY_PHT_PREFIX_LOOKUPS,
+                                             n_pht))))
+            legs["pht"] = {
+                "entries": n_pht, "key_spec": kspec,
+                "exact_lookups": n_pht,
+                "prefix_lookups": min(PROXY_PHT_PREFIX_LOOKUPS, n_pht),
+                "insert_s": insert_s, "settle_s": settle_s,
+                "inserts_per_s": n_pht / insert_s,
+                "lookups_s": time.perf_counter() - t1,
+                "delay_drops": len(records.delay_drops),
+                "seconds": time.perf_counter() - t0}
+            print(json.dumps({"proxy_pht": legs["pht"]}), file=sys.stderr,
+                  flush=True)
+
+            # ---- (e) the dhtnode child: the rest of its script ----------
+            t0 = time.perf_counter()
+            try:
+                ckey = InfoHash(_near_keys(me, 1, 37)[0])
+                child.communicate("\n".join(DHTNODE_SCRIPT).format(
+                    key=ckey.hex()) + "\n", timeout=300)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+                raise RuntimeError("chip_smoke: the dhtnode child did not "
+                                   "finish its script")
+            out_text = Path(child_out).read_text()
+            imported = [l.split("|")[-1].strip() for l in
+                        Path(child_err).read_text().splitlines()
+                        if l.startswith("import time:")]
+            bad = sorted({m for m in imported if m.split(".")[0] in
+                          ("jax", "jaxlib", "opendht_tpu")})
+            specs = profiling.KERNEL_SPECS
+            named = [n for n in specs
+                     if re.search(r"^%s\s+\d+\s" % n, out_text, re.M)]
+            require(child.returncode == 0, f"dhtnode exited "
+                    f"{child.returncode}: {out_text[-400:]}")
+            require(not bad, f"the dhtnode child loaded no JAX: {bad}")
+            require(len(imported) > 100 and "opendht_tpu_torch.tools.common"
+                    in imported, "the child's import list was read")
+            require(len(named) == len(specs) == 16, f"dhtnode kernels named "
+                    f"{len(named)} of the 16 ledger specs")
+            require("16 kernels on %s" % dev.type in out_text,
+                    "the child's ledger ran on the device")
+            require("Put: True" in out_text and "Get: 1 value(s)" in out_text
+                    and "child payload" in out_text,
+                    "the child's put and get: " + out_text[-600:])
+            require('dht_kernel_launches{kernel=\\"swarm_step\\"}'
+                    in out_text, "the child's stats carry its ledger")
+            require([v.data for v in node.get_sync(ckey, timeout=60)]
+                    == [b"child payload"], "the child's put reached the node")
+            legs["health_transitions"] = [
+                {"runner": name, **b["transition"]}
+                for name, r in (("node", node), ("client", c))
+                for b in r.get_bundles() if "transition" in b]
+            legs["dhtnode"] = {"device": dev.type, "kernels_named":
+                               len(named), "jax_modules": bad,
+                               "modules_imported": len(imported),
+                               "wait_s": time.perf_counter() - t0}
+    finally:
+        for s in streams:
+            s.close()
+        pool.shutdown()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        for r in reversed(runners):
+            r.join()
+        if server is not None:
+            server.stop()
+        farm_report = farm.stop() if farm is not None else {}
+        led.clear()
+        if pumps is not None:
+            pumps.close()
+        gc.unfreeze()
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(("dht", "proxy", "farm"))]
+    failures = reg.counter("dht_ingest_wave_failures_total").value - failures0
+    pumps.gc["series_at_end"] = sum(len(v) for v in reg.snapshot().values()
+                                    if isinstance(v, dict))
+    legs["rest"]["device_per_proxied_get"] = device_totals(proxied_gets,
+                                                           cuda, per=8)
+    emit({"phase": "proxy", **card, "rows": rows, "farm": {
+              "requests": farm_report.get("requests"),
+              "errors": farm_report.get("n_errors"), "ready_s": farm_s},
+          **legs, "ingest_wave_failures": failures,
+          "error_records": len(records.errors),
+          "delay_drops": len(records.delay_drops),
+          "dht_threads": pumps.report(records.drop_threads),
+          "planes_dark_records": len(records.dark),
+          "datagrams_sent": {"loopback": sent["loopback"],
+                             "off_loopback": len(sent["off_loopback"])},
+          "live_threads": alive,
+          "phase_s": time.perf_counter() - t_phase})
+    require(farm_report.get("n_errors") == 0 and farm_report["requests"],
+            f"the farm answered every datagram: {farm_report}")
+    require(failures == 0, "no ingest wave failed")
+    require(not records.errors, "no ERROR record from the port's loggers: "
+            + "; ".join(records.errors[:3]))
+    if cuda:
+        # the node's DHT thread keeps up on the card's host; a rehearsal
+        # beside other busy processes reports its lag, it does not fail
+        require(not records.delay_drops, "no packet dropped for its delay")
+    require(not records.dark, "no plane went dark: "
+            + "; ".join(records.dark[:3]))
+    require(not sent["off_loopback"], "every datagram stayed on loopback")
+    require(not alive, f"every runner, proxy and farm thread joined: {alive}")
+    return legs["rest"]["window_select_launches"]
+
+
 # Requests the planes phase's put client keeps unanswered (the node
 # answers one per server step; its retry timer is 1 s).
 PLANES_WINDOW = 16
@@ -2210,7 +3202,7 @@ def plane_op_timings(rng, dev, cuda, sync, l_max: int) -> dict:
 
 
 def planes_phase(args, dev, card, sync) -> int:
-    """The node's planes (see the module docstring, phase 13).  Returns
+    """The node's planes (see the module docstring, phase 14).  Returns
     the window_select launches of its counted runs."""
     import select
     import socket
@@ -2642,7 +3634,7 @@ def exact_topk_rows(sorted_ids, n: int, queries, k: int) -> np.ndarray:
 
 
 def scale_phase(args, dev, card, sync) -> dict:
-    """Scale-out on the card (see the module docstring, phase 14).
+    """Scale-out on the card (see the module docstring, phase 15).
     Returns each kernel's launches in the phase's counted runs and its
     max_abs_err against its plain version on this path's inputs."""
     import torch
@@ -2991,7 +3983,7 @@ def op_launch_split(prof) -> dict:
 
 
 def ledger_phase(args, dev, card, sync) -> dict:
-    """The kernel cost ledger on the card (module docstring, phase 15):
+    """The kernel cost ledger on the card (module docstring, phase 16):
     every spec computed and measured, its CPU-deterministic fields held
     to the port's budgets, the gate run against this ledger, and the
     live node's Q=1 resolves split by op.  Returns the kernel launches
@@ -3133,7 +4125,7 @@ def storm_plan():
 
 
 def swarm_phase(args, dev, card, sync) -> None:
-    """The device swarm (module docstring, phase 16): the storm arc at
+    """The device swarm (module docstring, phase 17): the storm arc at
     --swarm-n nodes, its replay, and the small arc against the numpy
     oracle."""
     import torch
@@ -3234,7 +4226,7 @@ def swarm_phase(args, dev, card, sync) -> None:
 
 
 def bench_phase(args, dev, card) -> None:
-    """The bench twin once (module docstring, phase 17)."""
+    """The bench twin once (module docstring, phase 18)."""
     from opendht_tpu_torch import bench
     out = bench.measure(dev, N=args.n, Q=args.q,
                         samples=5 if dev.type == "cuda" else 1)
@@ -3276,6 +4268,10 @@ def main(argv=None) -> int:
                          "runner phases)")
     ap.add_argument("--serve-gets", type=int, default=1000,
                     help="Dht.get calls of the serve phase's config 1")
+    ap.add_argument("--proxy-keys", type=int, default=256,
+                    help="keys the proxy phase posts and gets over REST")
+    ap.add_argument("--pht-entries", type=int, default=32,
+                    help="entries the proxy phase's PHT index inserts")
     ap.add_argument("--planes-keys", type=int, default=4_000,
                     help="keys the planes phase's client puts")
     ap.add_argument("--planes-gets", type=int, default=4096,
@@ -3610,6 +4606,12 @@ def main(argv=None) -> int:
     if late("runner"):
         # the runner's path: its window_select launches join too
         launches["window_select"] += runner_phase(args, dev, card, sync)
+    os.environ.setdefault("OPENDHT_TPU_SMOKE_RECORD_DIR", str(
+        Path(__file__).resolve().parent / "build" / "smoke_records"))
+    if late("proxy"):
+        # the proxied requests resolve on the live node: their
+        # window_select launches join too
+        launches["window_select"] += proxy_phase_in_child(args, card)
     if late("planes"):
         # the planes phase's misses launch window_select too
         launches["window_select"] += planes_phase(args, dev, card, sync)
@@ -3619,8 +4621,6 @@ def main(argv=None) -> int:
         for name in launches:
             launches[name] += scale_launches[name]
             err[name] = max(err[name], scale_err[name])
-    os.environ.setdefault("OPENDHT_TPU_SMOKE_RECORD_DIR", str(
-        Path(__file__).resolve().parent / "build" / "smoke_records"))
     if late("ledger"):
         # the ledger's lookup specs launch both kernels
         for name, n in ledger_phase(args, dev, card, sync).items():

@@ -6,8 +6,9 @@ numpy (``tbl._ids``, ``np.asarray(snap.sorted_ids)``, ``view.tomb_np``
 …) and gets the port's objects with the same contents.
 :func:`dht_from_jax` carries a whole serving node: its tables, its
 value store and its planes' state; :func:`secure_dht_from_jax` a node with its crypto overlay,
-and :func:`identity_from_jax` a key and certificate (through DER).
-Nothing here imports the JAX package: the JAX objects are read through
+and :func:`identity_from_jax` a key and certificate (through DER);
+:func:`proxy_server_from_jax` a REST proxy's permanent puts and push
+listeners.  Nothing here imports the JAX package: the JAX objects are read through
 their attributes and methods.
 """
 
@@ -21,7 +22,7 @@ import torch
 
 from ._device import resolve_device
 from .core.table import DELTA_CAP, TARGET_NODES, ChurnView, NodeTable, \
-    Snapshot
+    Snapshot, _stored_addr
 from .infohash import InfoHash
 from .ops import ids as IK
 from .sockaddr import SockAddr
@@ -62,7 +63,7 @@ def node_table_from_numpy(self_id: bytes, state: dict, addrs=None,
     if addrs is not None:
         if len(addrs) != cap:
             raise ValueError(f"addrs has {len(addrs)} entries for {cap} rows")
-        t._addrs = list(addrs)
+        t._addrs = [_stored_addr(a) for a in addrs]
     rows = np.nonzero(t._valid)[0]
     raw = IK.ids_to_bytes(t._ids[rows])
     t._row_of = {raw[i].tobytes(): int(r) for i, r in enumerate(rows)}
@@ -338,4 +339,58 @@ def swarm_from_jax(sim, *, device=None):
     dst.t, dst.tick_no = sim.t, sim.tick_no
     dst._verdict = sim._verdict
     dst._phase_names = tuple(sim._phase_names)
+    return dst
+
+
+def proxy_server_from_jax(jax_server, runner, *, port: int = 0,
+                          address: str = "127.0.0.1"):
+    """A port ``proxy.DhtProxyServer`` in front of ``runner`` (a port
+    ``DhtRunner``) carrying a JAX ``DhtProxyServer``'s state: its push
+    gateway (the injected sender and the Gorush address), every
+    permanent put (value through its packed bytes, deadline on the shared
+    monotonic clock, client id), re-put on ``runner`` as permanent so it
+    announces and refreshes it, and every push listener (key, client id,
+    deadline, gateway token, platform, client token, refresh flag),
+    subscribed on ``runner`` with the server's push callback.  The JAX
+    server keeps running; both then serve the same ``GET`` and keep the
+    same puts and subscriptions alive.  Left behind: open ``LISTEN``
+    streams (their clients reconnect) and the request-rate window."""
+    from .core.value import Value
+    from .proxy import server as S
+    gorush = getattr(jax_server, "_gorush", None)
+    dst = S.DhtProxyServer(runner, port, address=address,
+                           push_sender=jax_server._push_sender,
+                           push_server=gorush.push_server if gorush else None)
+    with jax_server._lock:
+        puts = [(bytes(k), vid, p.value.get_packed(), p.deadline,
+                 p.client_id) for (k, vid), p in jax_server._puts.items()]
+        subs = [(bytes(k), cid, r.deadline, r.push_token, r.is_android,
+                 r.client_token, r.refresh_sent)
+                for (k, cid), r in jax_server._push_listeners.items()]
+    for kb, vid, packed, deadline, client_id in puts:
+        key, value = InfoHash(kb), Value.from_packed(packed)
+        runner.put(key, value, permanent=True)
+        with dst._lock:
+            dst._puts[(key, vid)] = S._PermanentPut(value, deadline,
+                                                    client_id)
+    for kb, cid, deadline, push_token, is_android, ctok, sent in subs:
+        key = InfoHash(kb)
+        rec = S._PushListener(key, cid, None, deadline,
+                              push_token=push_token, is_android=is_android,
+                              client_token=ctok)
+        rec.refresh_sent = sent
+
+        def cb(values, expired, _rec=rec, _key=key, _cid=cid):
+            # the data shape of DhtProxyServer's SUBSCRIBE callback
+            dst._notify_push(_rec, {"key": _key.hex(), "to": _cid,
+                                    "token": str(_rec.client_token)},
+                             extra={"expired": bool(expired),
+                                    "ids": [v.id for v in values]})
+            return True
+        with dst._lock:
+            dst._push_listeners[(key, cid)] = rec
+        rec.token = runner.listen(key, cb)
+    with dst._lock:
+        dst.stats.put_count = len(dst._puts)
+        dst.stats.push_listeners_count = len(dst._push_listeners)
     return dst

@@ -50,6 +50,7 @@ from .._device import resolve_device
 from ..infohash import InfoHash
 from ..ops import ids as IK
 from ..ops import radix
+from ..sockaddr import SockAddr
 from ..ops.sorted_table import (_resolve_merge_pack, churn_lookup_finish,
                                 churn_lookup_launch, expand_table,
                                 lookup_topk, resolve_uncertified, sort_table,
@@ -79,6 +80,22 @@ _M_COMPACTIONS = telemetry.get_registry().counter(
 # tens-to-hundreds of rows, where a device round trip dwarfs the scan).
 HOST_SCAN_MAX_ROWS = 4096
 HOST_SCAN_MAX_QUERIES = 64
+
+
+def _stored_addr(addr):
+    """An address as a table row keeps it: a ``SockAddr`` as its compact
+    bytes, anything else as given.  Bytes are never walked by the cyclic
+    collector; a million rows of ``SockAddr`` objects (each with its
+    ``ipaddress`` object) would be two million tracked objects, and each
+    full collection would hold the node's thread for most of a second."""
+    if type(addr) is SockAddr and addr._ip is not None:
+        return addr.to_compact()
+    return addr
+
+
+def _loaded_addr(stored):
+    """A row's address as :func:`_stored_addr` kept it, as given to it."""
+    return SockAddr.from_compact(stored) if type(stored) is bytes else stored
 
 
 @dataclasses.dataclass
@@ -730,7 +747,7 @@ class NodeTable:
                 self._time_reply[row] = now
                 self._auth_err[row] = 0
             if addr is not None:
-                self._addrs[row] = addr
+                self._addrs[row] = _stored_addr(addr)
             return row
 
         b = min(InfoHash.common_bits(self.self_id, node_id), radix.MAX_BUCKET)
@@ -752,7 +769,7 @@ class NodeTable:
         self._time_seen[row] = now
         self._time_reply[row] = now if confirm >= 2 else 0.0
         self._bucket[row] = b
-        self._addrs[row] = addr
+        self._addrs[row] = _stored_addr(addr)
         self._row_of[key] = row
         self._bucket_count[b] += 1
         self._absorb_insert(row)
@@ -820,6 +837,8 @@ class NodeTable:
         ids_u32 = np.asarray(ids_u32, dtype=np.uint32)
         raw = IK.ids_to_bytes(ids_u32)
         per_row_addrs = isinstance(addrs, (list, tuple, np.ndarray))
+        addrs = ([_stored_addr(a) for a in addrs] if per_row_addrs
+                 else _stored_addr(addrs))
         seen: set = set()
         keep: list = []
         for i in range(ids_u32.shape[0]):
@@ -889,7 +908,7 @@ class NodeTable:
         return NodeView(
             row=row,
             id=InfoHash(IK.ids_to_bytes(self._ids[row]).tobytes()),
-            addr=self._addrs[row],
+            addr=_loaded_addr(self._addrs[row]),
             time_reply=float(self._time_reply[row]),
             time_seen=float(self._time_seen[row]),
             expired=bool(self._expired[row]),
@@ -899,7 +918,7 @@ class NodeTable:
         return self._row_of.get(bytes(node_id))
 
     def addr_of(self, row: int):
-        return self._addrs[row]
+        return _loaded_addr(self._addrs[row])
 
     def id_of(self, row: int) -> InfoHash:
         return InfoHash(IK.ids_to_bytes(self._ids[row]).tobytes())
@@ -1107,7 +1126,8 @@ class NodeTable:
         if now is None:
             now = time.monotonic()
         rows = np.nonzero(self.good_mask(now))[0]
-        return [(self.id_of(int(r)), self._addrs[int(r)]) for r in rows]
+        return [(self.id_of(int(r)), _loaded_addr(self._addrs[int(r)]))
+                for r in rows]
 
 
 def _as_limbs(targets) -> np.ndarray:

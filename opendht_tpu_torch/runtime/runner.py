@@ -20,13 +20,13 @@ include/opendht/dhtrunner.h:51-497, src/dhtrunner.cpp):
   ``loop()`` manually (dhtrunner.h:361-370).
 
 A copy of the JAX package's ``runtime/runner.py`` with its behaviour
-unchanged, except where a cut is marked with the ROADMAP item that
-restores it: the proxy backend (``enable_proxy``,
-``RunnerConfig(proxy_server=)`` raise NotImplementedError: A.6).
-The device is explicit: ``run(device=None)`` means the CUDA card and
-raises when there is none; tests pass ``device="cpu"``.  Every table
-and device call runs on the DHT thread (or the caller of ``loop()``);
-``run`` builds the kernels (``Dht.warmup``) on the caller's thread.
+unchanged, the REST proxy backend included (``enable_proxy``,
+``RunnerConfig(proxy_server=)``: a ``SecureDht`` over the port's
+``proxy.DhtProxyClient``).  The device is explicit:
+``run(device=None)`` means the CUDA card and raises when there is none;
+tests pass ``device="cpu"``.  Every table and device call runs on the
+DHT thread (or the caller of ``loop()``); ``run`` builds the kernels
+(``Dht.warmup``) on the caller's thread.
 """
 
 from __future__ import annotations
@@ -131,10 +131,6 @@ class RunnerConfig:
                  threaded: bool = True, proxy_server: str = "",
                  push_node_id: str = "", native_engine: bool = True,
                  native_exempt_loopback: bool = True):
-        if proxy_server:
-            # the REST proxy backend is not ported (ROADMAP A.6)
-            raise NotImplementedError(
-                "RunnerConfig(proxy_server=): the proxy is not ported")
         self.dht_config = dht_config or Config()
         self.identity = identity
         self.threaded = threaded
@@ -184,12 +180,14 @@ class DhtRunner:
         self.status_cb: Optional[Callable] = None
         self.on_status_changed: Optional[Callable] = None
 
-        # the proxy hot-swap state (↔ dhtrunner.cpp:992-1041) is not
-        # ported (ROADMAP A.6): the UDP node is always the backend
+        # proxy hot-swap state (↔ dhtrunner.cpp:992-1041)
+        self.use_proxy = False
+        self._proxy_dht = None                 # SecureDht over DhtProxyClient
+        self._proxy_client = None
         self._listeners_lock = threading.Lock()
         self._listener_token = 1
-        #: runner token → listener record (↔ DhtRunner::Listener,
-        #: dhtrunner.cpp:47-54: {tokenClassicDht, key, cb, f})
+        #: runner token → _RunnerListener (↔ DhtRunner::Listener,
+        #: dhtrunner.cpp:47-54: {tokenClassicDht, tokenProxyDht, key, cb, f})
         self._listeners: dict = {}
 
     # ------------------------------------------------------------- lifecycle
@@ -297,6 +295,10 @@ class DhtRunner:
             self._dht_thread = threading.Thread(
                 target=self._dht_loop, name="dht", daemon=True)
             self._dht_thread.start()
+        if config.proxy_server:
+            # start proxied (↔ DhtRunner::Config::proxy_server,
+            # dhtrunner.cpp:98-149 → enableProxy at startup)
+            self.enable_proxy(config.proxy_server)
 
     def _start_network(self, port: int, ipv6: bool) -> None:
         """(↔ DhtRunner::startNetwork, dhtrunner.cpp:511-608).  Both
@@ -454,14 +456,16 @@ class DhtRunner:
                 ops.extend(self._pending_ops_prio)
                 self._pending_ops_prio.clear()
             if self._pending_ops and (
-                    status is NodeStatus.CONNECTED
+                    self.use_proxy
+                    or status is NodeStatus.CONNECTED
                     or (status is NodeStatus.DISCONNECTED
                         and not self._bootstraping)):
                 ops.extend(self._pending_ops)
                 self._pending_ops.clear()
+        active = self._proxy_dht if self.use_proxy else dht
         for op in ops:
             try:
-                op(dht)
+                op(active)
             except Exception:
                 log.exception("pending op failed")
 
@@ -518,6 +522,8 @@ class DhtRunner:
                     if self._pending_ops_prio:
                         return True
                     if self._pending_ops:
+                        if self.use_proxy:
+                            return True
                         s = self.get_status()
                         if s is NodeStatus.CONNECTED or (
                                 s is NodeStatus.DISCONNECTED
@@ -538,6 +544,12 @@ class DhtRunner:
         return self._loop()
 
     # ------------------------------------------------------------- op queues
+    def _post_node(self, op, prio: bool = False) -> None:
+        """Post an op that must run on the UDP node even while the proxy
+        backend is active (node-level ops: ping/insert/export — the REST
+        backend has no node table)."""
+        self._post(lambda _active: op(self._dht), prio)
+
     def _post(self, op, prio: bool = False) -> None:
         with self._ops_lock:
             (self._pending_ops_prio if prio else self._pending_ops).append(op)
@@ -559,7 +571,7 @@ class DhtRunner:
     def bootstrap_node(self, node_id: InfoHash, addr: SockAddr) -> None:
         """Insert a known node directly (no ping) — import path
         (dhtrunner.cpp:933-947)."""
-        self._post(lambda dht: dht.insert_node(node_id, addr),
+        self._post_node(lambda dht: dht.insert_node(node_id, addr),
                         prio=True)
 
     def _ping(self, hostport: Tuple[str, int], done_cb=None) -> None:
@@ -569,7 +581,7 @@ class DhtRunner:
         except OSError:
             addrs = []
         for a in addrs:
-            self._post(lambda dht, a=a: dht.ping_node(a, done_cb),
+            self._post_node(lambda dht, a=a: dht.ping_node(a, done_cb),
                             prio=True)
 
     def _try_bootstrap_continuously(self) -> None:
@@ -717,6 +729,7 @@ class DhtRunner:
                 self._listeners[token] = {
                     "key": key, "cb": wrapped_cb, "f": f, "where": where,
                     "backend_token": backend_token,
+                    "on_proxy": self.use_proxy,
                 }
             # registration latency (enqueue → backend token issued)
             listen_done(backend_token is not None)
@@ -740,9 +753,80 @@ class DhtRunner:
 
     # ----------------------------------------------------------- proxy swap
     def enable_proxy(self, proxy: "str | None") -> None:
-        """(↔ DhtRunner::enableProxy, dhtrunner.cpp:992-1041).  The REST
-        proxy backend is not ported (ROADMAP A.6)."""
-        raise NotImplementedError("enable_proxy: the proxy is not ported")
+        """Hot-swap the backend between the UDP node and a REST proxy
+        client, re-registering every live listener on the new backend
+        (↔ DhtRunner::enableProxy, dhtrunner.cpp:992-1041).
+
+        ``proxy`` is "host:port" (or "http://host:port") to enable,
+        None/"" to fall back to the UDP node.
+        """
+        def op(_dht):
+            from ..proxy.client import DhtProxyClient
+
+            old = self._proxy_dht if self.use_proxy else self._dht
+            old_client = self._proxy_client
+            if proxy:
+                spec = proxy
+                for prefix in ("http://", "https://"):
+                    if spec.startswith(prefix):
+                        spec = spec[len(prefix):]
+                spec = spec.rstrip("/")
+                # host[:port], [v6]:port, bare v6 literal, bare host
+                if spec.startswith("["):                   # [::1]:8080
+                    host, _, rest = spec[1:].partition("]")
+                    port_s = rest.lstrip(":")
+                elif spec.count(":") == 1:                 # host:port
+                    host, _, port_s = spec.partition(":")
+                else:                                      # bare host / v6
+                    host, port_s = spec, ""
+                try:
+                    port_n = int(port_s) if port_s else 8080
+                except ValueError:
+                    log.error("enable_proxy: invalid proxy spec %r", proxy)
+                    return
+                client = DhtProxyClient(host or "127.0.0.1", port_n,
+                                        client_id=self._config.push_node_id)
+                ident = self._config.identity
+                new = SecureDht(client,
+                                (ident.first, ident.second) if ident else None)
+                self._proxy_client = client
+                self._proxy_dht = new
+                self.use_proxy = True
+            else:
+                if not self.use_proxy:
+                    return
+                new = self._dht
+                self.use_proxy = False
+            # re-register listeners on the new backend (:1005-1032).
+            # Established subscriptions were admitted when created:
+            # exempt the re-subscribes from ingest admission so a full
+            # queue at swap time cannot shed them (shed at admission
+            # only, never an existing listener)
+            import contextlib
+            wb = getattr(new, "wave_builder", None)
+            exempt = wb.exempt() if wb is not None else \
+                contextlib.nullcontext()
+            with self._listeners_lock:
+                recs = list(self._listeners.values())
+            with exempt:
+                for rec in recs:
+                    try:
+                        old.cancel_listen(rec["key"], rec["backend_token"])
+                    except Exception:
+                        pass
+                    rec["backend_token"] = new.listen(
+                        rec["key"], rec["cb"], rec["f"], rec["where"])
+                    rec["on_proxy"] = self.use_proxy
+            # retire the previous proxy client (proxy→proxy swap or
+            # fall-back to UDP): stop its maintenance/long-poll threads
+            if old_client is not None and old_client is not self._proxy_client:
+                old_client.join()
+            if not proxy and self._proxy_client is not None:
+                self._proxy_client.join()
+                self._proxy_client = None
+                self._proxy_dht = None
+
+        self._post(op, prio=True)
 
     def find_certificate(self, node: InfoHash, cb) -> None:
         self._post(lambda dht: dht.find_certificate(node, cb))
@@ -752,7 +836,10 @@ class DhtRunner:
 
     # ----------------------------------------------------------- inspection
     def get_status(self, af: int = 0) -> NodeStatus:
-        """Best status across families (dhtrunner.h:165-172)."""
+        """Best status across families (dhtrunner.h:165-172); when the
+        proxy backend is active, its connectivity is the node's status."""
+        if self.use_proxy and self._proxy_dht is not None:
+            return self._proxy_dht.get_status(af)
         if af == _socket.AF_INET:
             return self.status4
         if af == _socket.AF_INET6:
@@ -780,7 +867,7 @@ class DhtRunner:
 
     def get_metrics(self) -> dict:
         """JSON snapshot of the unified telemetry registry — the SAME
-        registry the JAX proxy's ``GET /stats`` route serves as
+        registry the proxy's ``GET /stats`` route serves as
         Prometheus text.  Refreshes the routing-table health gauges
         (``dht_routing_*{family=}`` — the ``get_nodes_stats`` island
         folded into the spine, ↔ Dht::getNodesStats) before dumping, so
@@ -808,7 +895,7 @@ class DhtRunner:
         """The node's current health report: the verdict
         (``healthy | degraded | unhealthy``; ``unknown`` before the
         first tick or with ``health.period = 0``) plus per-signal and
-        per-SLO attribution — the JSON the JAX proxy's ``GET /healthz``
+        per-SLO attribution — the JSON the proxy's ``GET /healthz``
         route serves."""
         h = self._health
         if h is None:
@@ -820,7 +907,7 @@ class DhtRunner:
 
     def get_history(self, since: Optional[float] = None,
                     limit: Optional[int] = None) -> dict:
-        """The flight data recorder's retained frames: the JSON the JAX
+        """The flight data recorder's retained frames: the JSON the
         proxy's ``GET /history`` route serves.
         ``since`` keeps frames from the last SEC seconds (recorder
         clock), ``limit`` the newest N.  The envelope carries the
@@ -1045,18 +1132,18 @@ class DhtRunner:
 
     def export_nodes(self) -> list:
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        self._post(lambda dht: fut.set_result(dht.export_nodes()),
+        self._post_node(lambda dht: fut.set_result(dht.export_nodes()),
                         prio=True)
         return fut.result(10.0)
 
     def export_values(self) -> list:
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        self._post(lambda dht: fut.set_result(dht.export_values()),
+        self._post_node(lambda dht: fut.set_result(dht.export_values()),
                         prio=True)
         return fut.result(10.0)
 
     def import_values(self, values: list) -> None:
-        self._post(lambda dht: dht.import_values(values), prio=True)
+        self._post_node(lambda dht: dht.import_values(values), prio=True)
 
     # ------------------------------------------------------------- shutdown
     def shutdown(self, cb=None) -> None:
@@ -1109,4 +1196,9 @@ class DhtRunner:
         with self._ops_lock:
             self._pending_ops.clear()
             self._pending_ops_prio.clear()
+        if self._proxy_client is not None:
+            self._proxy_client.join()
+            self._proxy_client = None
+            self._proxy_dht = None
+        self.use_proxy = False
         self._dht = None

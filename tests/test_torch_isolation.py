@@ -5,8 +5,11 @@ carries its own codec), and every module but ``crypto`` leaves out
 sketch, hot-value cache, listener table) are at work; a signed put through the port's
 ``SecureDht`` loads no JAX module; its entry points called with
 ``device=None`` on a machine without a card raise instead of running on
-the CPU, and ``chip_smoke.py`` fails without a card and rehearses every
-phase on the CPU without claiming a chip run."""
+the CPU (the tools' ``setup_node`` without ``--cpu`` among them); the
+periphery (a REST proxy server and client, a PHT over the port's
+``VirtualNet``, the dhtnode REPL) loads no JAX module; and
+``chip_smoke.py`` fails without a card and rehearses every phase on the
+CPU, the proxy phase included, without claiming a chip run."""
 
 import json
 import os
@@ -29,6 +32,8 @@ from opendht_tpu_torch.ops import radix
 from opendht_tpu_torch import bench, chaos, profiling, telemetry
 from opendht_tpu_torch.ops import swarm
 from opendht_tpu_torch.parallel import make_mesh
+from opendht_tpu_torch.testing import VirtualNet
+from opendht_tpu_torch.tools.common import make_arg_parser, setup_node
 from opendht_tpu_torch.waterfall import OpenBoundTracker
 
 REPO = Path(__file__).resolve().parents[1]
@@ -62,7 +67,12 @@ def test_importing_the_port_loads_no_jax():
                 "keyspace", "hotcache", "listeners", "chaos", "ops.sketch",
                 "ops.cache_probe", "ops.listener_match", "parallel",
                 "parallel.partition", "parallel.sharded", "reshard",
-                "profiling", "perf_gate", "bench", "ops.swarm"):
+                "profiling", "perf_gate", "bench", "ops.swarm", "proxy",
+                "proxy.server", "proxy.client", "proxy.json_codec",
+                "proxy.push", "indexation", "indexation.pht", "testing",
+                "testing.virtual_net", "testing.trace_assembler", "tools",
+                "tools.common", "tools.dhtnode", "tools.dhtchat",
+                "tools.dhtscanner", "tools.compat_check"):
         assert f"opendht_tpu_torch.{mod}" in want
 
 
@@ -230,6 +240,63 @@ def test_a_signed_put_loads_no_jax_module():
     assert res == {"signed": True, "done": 1, "crypto": True, "bad": []}
 
 
+_PERIPHERY_PROBE = """
+import builtins, contextlib, io, json, sys
+from opendht_tpu_torch.core.value import Value
+from opendht_tpu_torch.indexation.pht import Pht
+from opendht_tpu_torch.infohash import InfoHash
+from opendht_tpu_torch.proxy import DhtProxyClient, DhtProxyServer
+from opendht_tpu_torch.runtime import Config, DhtRunner
+from opendht_tpu_torch.testing import VirtualNet
+from opendht_tpu_torch.tools.dhtnode import cmd_loop
+a, b = DhtRunner(), DhtRunner()
+a.run(0, device="cpu")
+b.run(0, device="cpu")
+b.bootstrap("127.0.0.1", a.get_bound_port())
+server = DhtProxyServer(b, port=0)
+client = DhtProxyClient("127.0.0.1", server.port)
+key = InfoHash.get("periphery-probe")
+put = a.put_sync(key, Value(b"v", value_id=3), timeout=60)
+got = [v.data for v in client.get_sync(key, timeout=60)]
+script = iter(["p repl-probe from the repl", "g repl-probe", "x"])
+builtins.input = lambda prompt="": next(script)
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    cmd_loop(b, None)
+client.join(); server.stop(); a.join(); b.join()
+net = VirtualNet(device="cpu")
+nodes = [net.add_node(Config(max_req_per_sec=100000), host="127.0.0.%d" % i)
+         for i in (1, 2, 3)]
+net.bootstrap_all(nodes[0])
+net.run(90, net.all_connected)
+pht, done = Pht("probe", {"k": 2}, nodes[0]), {}
+pht.insert({"k": b"ab"}, (InfoHash.get("x"), 1), lambda ok: done.update(i=ok))
+net.run(120, lambda: "i" in done)
+pht.lookup({"k": b"ab"}, lambda vals, p: done.update(v=len(vals)),
+           lambda ok: done.update(l=ok))
+net.run(120, lambda: "l" in done)
+print(json.dumps({
+    "put": put, "got": [g.decode() for g in got],
+    "repl": "Put: True" in out.getvalue()
+            and "from the repl" in out.getvalue(),
+    "pht": [done.get("i"), done.get("l"), done.get("v")],
+    "bad": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "opendht_tpu"))}))
+"""
+
+
+def test_the_periphery_loads_no_jax_module():
+    """A proxy server and client over two port runners, the dhtnode
+    REPL's ``cmd_loop`` and a ``Pht`` over the port's ``VirtualNet``
+    load neither JAX nor ``opendht_tpu``."""
+    out = subprocess.run([sys.executable, "-c", _PERIPHERY_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=240,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"put": True, "got": ["v"], "repl": True,
+                   "pht": [True, True, 1], "bad": []}
+
+
 def test_port_sources_name_no_jax_import():
     for path in (REPO / "opendht_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
@@ -283,6 +350,9 @@ def _entry_points():
         "bench.measure": lambda: bench.measure(),
         "OpenBoundTracker": lambda: OpenBoundTracker(
             reg=telemetry.MetricsRegistry()),
+        "tools.setup_node": lambda: setup_node(
+            make_arg_parser("t").parse_args([])),
+        "VirtualNet": lambda: VirtualNet(),
     }
 
 
@@ -335,6 +405,7 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
                       "--serve-gets", "100", "--planes-keys", "200",
                       "--planes-gets", "600", "--scale-n", "20000",
                       "--scale-q", "256", "--swarm-n", "2048",
+                      "--proxy-keys", "64", "--pht-entries", "17",
                       records=tmp_path)
     assert out.returncode == 3, out.stderr[-2000:]
     lines = [json.loads(l) for l in out.stdout.splitlines()
@@ -342,7 +413,8 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
     phases = [l.get("phase") for l in lines]
     assert phases[:-1] == ["device", "main", "parity", "timing", "profile",
                            "memory", "search", "maintenance", "churn",
-                           "serve", "runner", "planes", "scale", "ledger",
+                           "serve", "runner", "proxy", "planes", "scale",
+                           "ledger",
                            "ledger_q1_split", "swarm", "swarm_oracle",
                            "bench", "timing_gate"]
     # the records perf_gate's soft checks read
@@ -378,6 +450,20 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
             runner["ingest_wave_failures"]) == (0, 0, 0)
     assert runner["datagrams_sent"]["off_loopback"] == 0
     assert runner["crypto_modules"] == runner["live_runner_threads"] == []
+    proxy = lines[phases.index("proxy")]
+    assert proxy["rows"] == 8192 and proxy["rest"]["equal_to_direct_get"] == 64
+    assert proxy["rest"]["listen_streams"] == {"streams": 16, "values_each": 2}
+    assert proxy["rest"]["open_bounds"] == {"platform": "cpu",
+                                            "status": "unsettled"}
+    assert proxy["rest"]["kernel_gauges"] > 0
+    assert proxy["swap"]["puts_heard_once"] == 3
+    assert proxy["pht"]["entries"] == proxy["pht"]["exact_lookups"] == 17
+    assert proxy["dhtnode"] == {**proxy["dhtnode"], "device": "cpu",
+                                "kernels_named": 16, "jax_modules": []}
+    assert proxy["farm"]["errors"] == 0 and proxy["farm"]["requests"] > 0
+    assert (proxy["error_records"], proxy["ingest_wave_failures"]) == (0, 0)
+    assert proxy["datagrams_sent"]["off_loopback"] == 0
+    assert proxy["live_threads"] == []
     planes = lines[phases.index("planes")]
     assert planes["puts"]["keys"] == 200
     assert planes["gets"]["gets"] == 600

@@ -10,9 +10,11 @@ real localhost UDP, against the JAX package's.
   both directions.
 - A node carried by ``convert.secure_dht_from_jax`` answers a client's
   find and get with the same bytes as the original.
-- The runner's cuts: the proxy raises NotImplementedError, and a runner
-  without ``device=`` needs the card.  Every plane's accessor (the
-  resharder's included) reports with the JAX runner's keys.
+- The proxy backend: ``RunnerConfig(proxy_server=)`` starts a runner
+  proxied and ``enable_proxy`` swaps it to UDP and back, against a port
+  ``DhtProxyServer`` (tests/test_torch_proxy.py holds the rest).  A
+  runner without ``device=`` needs the card.  Every plane's accessor
+  (the resharder's included) reports with the JAX runner's keys.
 
 Every real-UDP test binds port 0, waits on predicates with budgets of
 at least 20 s and joins its runners in ``finally``.
@@ -228,17 +230,43 @@ def test_normal_ops_still_gated_while_bootstrapping():
         r.join()
 
 
-# ----------------------------------------------------------- the cuts
+# ------------------------------------------ the proxy, and the card cut
 def test_proxy_is_not_ported():
-    with pytest.raises(NotImplementedError, match="proxy"):
-        RunnerConfig(proxy_server="127.0.0.1:8080")
-    r = DhtRunner()
-    r.run(0, RunnerConfig(threaded=False), **CPU)
+    """The proxy backend is ported: a runner started with
+    ``RunnerConfig(proxy_server=)`` is proxied from ``run()``, puts and
+    gets through a port ``DhtProxyServer``, and ``enable_proxy`` swaps
+    it to its UDP node and back to the proxy."""
+    from opendht_tpu_torch.proxy import DhtProxyServer
+    a, b, c = DhtRunner(), DhtRunner(), DhtRunner()
+    server = None
     try:
-        with pytest.raises(NotImplementedError, match="proxy"):
-            r.enable_proxy("127.0.0.1:8080")
+        a.run(0, **CPU)
+        b.run(0, **CPU)
+        b.bootstrap("127.0.0.1", a.get_bound_port())
+        assert wait_for(lambda: connected(a, b), 60.0)
+        server = DhtProxyServer(b, port=0)
+        spec = "127.0.0.1:%d" % server.port
+        c.run(0, RunnerConfig(proxy_server=spec), **CPU)
+        assert wait_for(lambda: c.use_proxy, 60.0)
+        key = InfoHash.get("runner-proxy-key")
+        assert c.put_sync(key, Value(b"through the proxy", value_id=5),
+                          timeout=60.0)
+        assert [v.data for v in a.get_sync(key, timeout=60.0)] == \
+            [b"through the proxy"]
+        assert [v.data for v in c.get_sync(key, timeout=60.0)] == \
+            [b"through the proxy"]
+        c.enable_proxy(None)
+        assert wait_for(lambda: not c.use_proxy, 60.0)
+        assert c._proxy_client is None
+        c.enable_proxy(spec)
+        assert wait_for(lambda: c.use_proxy, 60.0)
+        assert wait_for(lambda: c.get_status() is NodeStatus.CONNECTED, 60.0)
     finally:
-        r.join()
+        c.join()
+        if server is not None:
+            server.stop()
+        a.join()
+        b.join()
 
 
 def test_planes_not_ported_answer_as_absent_and_the_rest_report():

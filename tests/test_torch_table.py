@@ -136,3 +136,45 @@ def test_snapshot_from_numpy_answers_like_the_jax_snapshot():
         np.testing.assert_array_equal(a[0], b[0])
         np.testing.assert_array_equal(a[1], b[1])
     assert torch.equal(ps.perm, torch.from_numpy(np.array(js.perm)))
+
+
+def test_addresses_read_back_as_the_jax_tables_and_stay_untracked():
+    """``SockAddr`` row addresses, from bulk_load (one a row and one
+    shared) and from insert, read back as the JAX table's through
+    ``addr_of``, ``get_view`` and ``export_nodes``.  The port keeps them
+    as compact bytes, so its rows hold no object for the cyclic collector
+    to walk; an address of another type is kept as given."""
+    import gc
+    from opendht_tpu.sockaddr import SockAddr as JaxAddr
+    from opendht_tpu_torch.sockaddr import SockAddr
+    me = _raw(1, 11)[0].tobytes()
+    jt, pt = JaxTable(JaxHash(me)), NodeTable(InfoHash(me), device="cpu")
+    ids = TK.ids_from_bytes(_raw(5000, 12))
+    hosts = ["10.%d.%d.%d" % (i >> 16 & 255, i >> 8 & 255, i & 255)
+             for i in range(4000)]
+    jt.bulk_load(ids[:4000], now=1.0, addrs=[
+        JaxAddr(h, 4000 + i % 7) for i, h in enumerate(hosts)])
+    pt.bulk_load(ids[:4000], now=1.0, addrs=[
+        SockAddr(h, 4000 + i % 7) for i, h in enumerate(hosts)])
+    jt.bulk_load(ids[4000:], now=1.0, addrs=JaxAddr("::1", 9))
+    pt.bulk_load(ids[4000:], now=1.0, addrs=SockAddr("::1", 9))
+    near = _raw(20, 13)
+    near[:, :3] = np.frombuffer(me[:3], np.uint8)    # buckets with room
+    for i, b in enumerate(near):
+        jt.insert(JaxHash(bytes(b)), JaxAddr("192.168.0.%d" % i, 5000), 2.0,
+                  confirm=2)
+        pt.insert(InfoHash(bytes(b)), SockAddr("192.168.0.%d" % i, 5000),
+                  2.0, confirm=2)
+    rows = np.nonzero(pt._valid)[0]
+    assert len(rows) == len(jt) == len(pt) > 5000
+    for r in map(int, rows):
+        assert repr(pt.addr_of(r)) == repr(jt.addr_of(r))
+        assert pt.get_view(r).addr == pt.addr_of(r)
+        assert isinstance(pt.addr_of(r), SockAddr)
+    assert [(bytes(i), repr(a)) for i, a in pt.export_nodes(3.0)] == [
+        (bytes(i), repr(a)) for i, a in jt.export_nodes(3.0)]
+    assert not any(gc.is_tracked(a) for a in pt._addrs)
+    odd, raw = ("10.0.0.1", 4000), _raw(1, 14)[0]
+    raw[:5] = np.frombuffer(me[:5], np.uint8)
+    row = pt.insert(InfoHash(bytes(raw)), odd, 3.0)
+    assert pt.addr_of(row) is odd
