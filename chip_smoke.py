@@ -104,7 +104,8 @@ Phases, one JSON line each:
              (benchmarks/live_node_scale.py's shape): 1,000,000 seeded
              ids (default_rng(11)), a Dht over a real localhost UDP
              socket served from a thread, a client NetworkEngine sending
-             512 alternating find / get requests, SERVE_WINDOW of them
+             --serve-q (256; cut from 512, PERF.md §4) alternating
+             find / get requests, SERVE_WINDOW of them
              unanswered at a time, in two halves, a peer joining a
              near-empty bucket between them (so the first half runs
              through the snapshot, the second through the churn view);
@@ -203,10 +204,12 @@ Phases, one JSON line each:
              JAX defaults but the keyspace's hot share (PLANES_HOT_SHARE;
              and max_req_per_sec, as in the serve phase) on a virtual
              clock: a client engine puts one value on each of
-             --planes-keys keys (4,000: cut from 10,000 to keep the full
-             run near 600 s, PERF.md §4) over loopback (keys near the node's id, so its
+             --planes-keys keys (500: cut from 10,000 to keep the full
+             run under 540 s, PERF.md §4) over loopback (keys near the
+             node's id, so its
              announce's too-far check stores them), PLANES_WINDOW
-             unanswered at a time; 20 virtual s later 4,096 Dht.get over
+             unanswered at a time; 20 virtual s later --planes-gets
+             (2,048; cut from 4,096, PERF.md §4) Dht.get over
              those keys drawn from a seeded Zipf(0.99) (YCSB workload
              C), one per virtual ms, then the scheduler pumped through
              three observatory ticks (2 s).  Checks: cache hits > 0;
@@ -297,6 +300,37 @@ Phases, one JSON line each:
              written as bench.json into the smoke-record directory; then
              perf_gate's soft timing ceilings over that directory
              (warnings, never a failure).
+19. monitor — (run after proxy, in a process of its own, as the proxy
+             phase is) the monitor, the scenario harness and the
+             assemblers on the card.  (a) DhtNetwork(--monitor-runners,
+             16; cut from 32, PERF.md §4) on the card with
+             Config(max_req_per_sec=1_000_000), each runner behind a
+             DhtProxyServer(port=0); the cluster connects.  (b)
+             --monitor-keys (256) puts of distinct seeded keys, each
+             through a random node, then a quarter of them got from
+             another node, MONITOR_WINDOW unanswered at a time (an
+             operation the overloaded one-process cluster lost is sent
+             again, at most twice, and counted); every get returns its
+             put's value id and bytes.  (c) dhtmon.run_checks over the
+             endpoints and the runners (require_ready, min_success,
+             min_coverage, since over GET /history, one max_peer_fail
+             and one max_stage check): the coverage probe resolves every
+             stored key in one call through the device snapshot
+             (window_select launched, counted), its closest-8 lists equal
+             a numpy XOR scan of the census and its held counts a host
+             recount; the probe alone is timed and profiled; ``python -m
+             opendht_tpu_torch.tools.dhtmon --require-ready --json`` as a
+             child.  (d) a chaos LinkRule dropping one directed link, 8
+             gets driven over it: assemble_wiremap over every GET /peers
+             names it worst_edge(fail_ratio); assemble_timeline over
+             every node's history bundle; the benchmark (-t gets) and
+             pingpong CLIs as children started with the phase (on the
+             card; --cpu only in the rehearsal), each exiting 0 and
+             loading no JAX module.  Then two nodes shut down: with more
+             than 8 nodes left, min_coverage=1.0 reports a violation and
+             the mean coverage falls.  On the card the cluster must be
+             healthy as run (no violation) and the dropped link the
+             worst edge; the rehearsal reports both.
 
 The smoke-record directory is $OPENDHT_TPU_SMOKE_RECORD_DIR, else
 build/smoke_records beside this script: ``python -m
@@ -343,7 +377,8 @@ SERVE_WINDOW = 4
 RUNNER_VALUES = 64
 # the phases after main, in their order; --phases picks some of them
 LATE_PHASES = ("search", "maintenance", "churn", "serve", "runner",
-               "proxy", "planes", "scale", "ledger", "swarm", "bench")
+               "proxy", "monitor", "planes", "scale", "ledger", "swarm",
+               "bench")
 
 
 def emit(obj) -> None:
@@ -2455,37 +2490,51 @@ def _listening(runner, key, n: int = 1) -> bool:
     return sum(1 for r in recs if bytes(r["key"]) == bytes(key)) >= n
 
 
-def proxy_phase_in_child(args, card) -> int:
-    """Run the proxy phase in a process of its own, as a server runs: a
-    fresh interpreter, heap and metrics registry, none of what the
-    earlier phases left (their nodes' per-peer series alone are ~22,000,
-    and each history tick of the node walks every series on its
-    thread).  Passes its output lines on; returns its window_select
-    launches."""
+def imported_modules(path: str) -> list:
+    """The modules a ``python -X importtime`` child listed on its stderr
+    (written to ``path``)."""
+    return [l.split("|")[-1].strip() for l in
+            Path(path).read_text().splitlines()
+            if l.startswith("import time:")]
+
+
+def jax_modules(mods) -> list:
+    return sorted({m for m in mods
+                   if m.split(".")[0] in ("jax", "jaxlib", "opendht_tpu")})
+
+
+def phase_in_child(name: str, args, card) -> int:
+    """Run the late phase ``name`` (proxy, monitor) in a process of its
+    own, as a server runs: a fresh interpreter, heap and metrics
+    registry, none of what the earlier phases left (their nodes'
+    per-peer series alone are ~22,000, and each history tick of a node
+    walks every series on its thread).  Passes its output lines on;
+    returns its window_select launches."""
     here = str(Path(__file__).resolve().parent)
     code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
-            "sys.exit(chip_smoke.proxy_child())" % here)
-    proc = subprocess.Popen([sys.executable, "-c", code,
+            "sys.exit(chip_smoke.phase_child())" % here)
+    proc = subprocess.Popen([sys.executable, "-c", code, name,
                              json.dumps(vars(args)), json.dumps(card)],
                             stdout=subprocess.PIPE, text=True, cwd=here)
     launched = None
     for line in proc.stdout:
-        if line.startswith('{"proxy_child_launches"'):
-            launched = json.loads(line)["proxy_child_launches"]
+        if line.startswith('{"child_launches"'):
+            launched = json.loads(line)["child_launches"]
         else:
             print(line, end="", flush=True)
     rc = proc.wait()
     require(rc == 0 and launched is not None,
-            f"the proxy phase's process exited {rc}")
+            f"the {name} phase's process exited {rc}")
     return launched
 
 
-def proxy_child() -> int:
-    """The proxy phase's process (see proxy_phase_in_child): argv holds
-    the script's arguments and the card record, as JSON."""
+def phase_child() -> int:
+    """A late phase's process (see phase_in_child): argv holds the
+    phase's name, the script's arguments and the card record, as JSON."""
     import torch
-    args = argparse.Namespace(**json.loads(sys.argv[1]))
-    card = json.loads(sys.argv[2])
+    phase = {"proxy": proxy_phase, "monitor": monitor_phase}[sys.argv[1]]
+    args = argparse.Namespace(**json.loads(sys.argv[2]))
+    card = json.loads(sys.argv[3])
     if args.cpu:
         torch.set_num_threads(2)
     dev = torch.device("cpu" if args.cpu else "cuda")
@@ -2493,8 +2542,8 @@ def proxy_child() -> int:
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize()
-    launched = proxy_phase(args, dev, card, sync)
-    print(json.dumps({"proxy_child_launches": launched}), flush=True)
+    launched = phase(args, dev, card, sync)
+    print(json.dumps({"child_launches": launched}), flush=True)
     return 0
 
 
@@ -2911,11 +2960,8 @@ def proxy_phase(args, dev, card, sync) -> int:
                 raise RuntimeError("chip_smoke: the dhtnode child did not "
                                    "finish its script")
             out_text = Path(child_out).read_text()
-            imported = [l.split("|")[-1].strip() for l in
-                        Path(child_err).read_text().splitlines()
-                        if l.startswith("import time:")]
-            bad = sorted({m for m in imported if m.split(".")[0] in
-                          ("jax", "jaxlib", "opendht_tpu")})
+            imported = imported_modules(child_err)
+            bad = jax_modules(imported)
             specs = profiling.KERNEL_SPECS
             named = [n for n in specs
                      if re.search(r"^%s\s+\d+\s" % n, out_text, re.M)]
@@ -2992,6 +3038,428 @@ def proxy_phase(args, dev, card, sync) -> int:
     require(not sent["off_loopback"], "every datagram stayed on loopback")
     require(not alive, f"every runner, proxy and farm thread joined: {alive}")
     return legs["rest"]["window_select_launches"]
+
+
+# ---- the monitor phase (phase 19) --------------------------------------
+# Puts and gets the monitor phase's cluster keeps unanswered, and the
+# keys it drives from one node towards the peer behind the dropped link.
+MONITOR_WINDOW = 16
+MONITOR_LINK_KEYS = 8
+
+
+def closest_np(ids: np.ndarray, key: bytes, k: int) -> list:
+    """The ``k`` rows of ``ids`` (uint8 [N, 20]) XOR-closest to ``key``,
+    by a plain numpy scan."""
+    d = ids ^ np.frombuffer(key, np.uint8)
+    return list(np.lexsort(d.T[::-1])[:k])
+
+
+def monitor_phase(args, dev, card, sync) -> int:
+    """The monitor, the scenario harness and the assemblers (see the
+    module docstring, phase 19).  Returns the window_select launches of
+    the coverage probe's resolves."""
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from opendht_tpu_torch import chaos
+    from opendht_tpu_torch.core.value import Value
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.ops.window_select import window_select
+    from opendht_tpu_torch.proxy import DhtProxyServer
+    from opendht_tpu_torch.runtime import Config
+    from opendht_tpu_torch.testing import DhtNetwork
+    from opendht_tpu_torch.testing import health_monitor as hm
+    from opendht_tpu_torch.testing import timeline_assembler as ta
+    from opendht_tpu_torch.testing import wiremap_assembler as wma
+    from opendht_tpu_torch.tools import dhtmon
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    device = None if cuda else "cpu"
+    n, n_keys = args.monitor_runners, args.monitor_keys
+    n_gets = n_keys // 4
+    here = str(Path(__file__).resolve().parent)
+    record_dir = os.environ["OPENDHT_TPU_SMOKE_RECORD_DIR"]
+    os.makedirs(record_dir, exist_ok=True)
+    env = dict(os.environ)
+    if not cuda:
+        env["OMP_NUM_THREADS"] = "2"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                     else [])
+    legs, spawned = {}, []
+
+    def spawn(name: str, argv: list, device_flag: bool = True):
+        """A harness CLI as a child, on the card unless this is the
+        rehearsal (``--cpu``, for a CLI with a device); -X importtime
+        lists its modules on its stderr."""
+        fo = open(os.path.join(record_dir, f"monitor_{name}.out"), "w")
+        fe = open(os.path.join(record_dir, f"monitor_{name}.importtime"),
+                  "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-X", "importtime", "-m"] + argv
+            + ([] if cuda or not device_flag else ["--cpu"]),
+            stdout=fo, stderr=fe, text=True,
+            cwd=here, env=env)
+        fo.close()
+        fe.close()
+        spawned.append(proc)
+        return proc
+
+    def finish(name: str, proc, timeout: float = 300.0,
+               rcs=(0,)) -> dict:
+        """Wait for a child; its rc (one of ``rcs``), its JSON line and
+        its JAX modules."""
+        try:
+            proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise RuntimeError(f"chip_smoke: the {name} child did not "
+                               "finish")
+        out = Path(record_dir, f"monitor_{name}.out").read_text()
+        mods = imported_modules(os.path.join(
+            record_dir, f"monitor_{name}.importtime"))
+        require(proc.returncode in rcs, f"the {name} child exited "
+                f"{proc.returncode}: {out[-400:]}")
+        require(len(mods) > 50 and "torch" in mods,
+                f"the {name} child's import list was read")
+        lines = [l for l in out.splitlines() if l.startswith("{")]
+        return {"rc": proc.returncode, "jax_modules": jax_modules(mods),
+                "doc": json.loads(lines[-1]) if lines else None}
+
+    # ---- (d), started first: the harness CLIs as children --------------
+    t_children = time.perf_counter()
+    children = {
+        "benchmark": spawn("benchmark", [
+            "opendht_tpu_torch.testing.benchmark", "-t", "gets", "-n",
+            str(n), "-r", "1", "-g", "16", "--seed", str(args.seed)]),
+        "pingpong": spawn("pingpong", ["opendht_tpu_torch.testing.pingpong",
+                                       "-n", "20"])}
+
+    net, proxies = None, []
+    gate = threading.BoundedSemaphore(MONITOR_WINDOW)
+    try:
+        with PortRecords() as records, LookupRoutes(cuda, sync) as lookups:
+            # ---- (a) the cluster, each runner behind its proxy ---------
+            t0 = time.perf_counter()
+            # every runner shares the loopback address: the per-IP quota
+            # a deployment applies to one peer would throttle them all
+            net = DhtNetwork(n, config=Config(max_req_per_sec=1_000_000),
+                             seed=args.seed, device=device)
+            proxies = [DhtProxyServer(r, port=0) for r in net.nodes]
+            by_runner = dict(zip(map(id, net.nodes), proxies))
+            require(net.wait_connected(60), "the cluster connected")
+            legs["setup_s"] = time.perf_counter() - t0
+            eps = ["127.0.0.1:%d" % p.port for p in proxies]
+
+            # ---- (b) traffic: puts through random nodes, then gets -----
+            rng = np.random.default_rng(args.seed + 19)
+            raw = rng.integers(0, 256, size=(n_keys, 20), dtype=np.uint8)
+            keys = [InfoHash(raw[i].tobytes()) for i in range(n_keys)]
+            require(len({bytes(k) for k in keys}) == n_keys,
+                    "distinct keys")
+            putter = rng.integers(0, n, size=n_keys)
+            want = {i: (i + 1, b"monitor value %d" % i)
+                    for i in range(n_keys)}
+
+            def windowed(calls) -> list:
+                """Run ``calls`` (each taking a done callback), at most
+                MONITOR_WINDOW unanswered at a time; their results."""
+                results = [None] * len(calls)
+                events = [threading.Event() for _ in calls]
+                for i, call in enumerate(calls):
+                    gate.acquire()
+
+                    def done(res, _i=i):
+                        results[_i] = res
+                        events[_i].set()
+                        gate.release()
+                    call(done)
+                for e in events:
+                    require(e.wait(120), "an operation finished")
+                return results
+
+            def put(i):
+                return lambda done: net.nodes[putter[i]].put(
+                    keys[i], Value(want[i][1], value_id=want[i][0]),
+                    lambda ok, ns: done(ok))
+
+            # an operation whose datagrams the loaded one-process cluster
+            # dropped (the runner drops packets queued past 0.5 s) is
+            # sent again, as a client would, at most twice; the retries
+            # are reported
+            t0 = time.perf_counter()
+            oks = windowed([put(i) for i in range(n_keys)])
+            failed = [i for i in range(n_keys) if not oks[i]]
+            retried = {"puts": len(failed), "gets": 0}
+            for _ in range(2):
+                if failed:
+                    oks = windowed([put(i) for i in failed])
+                    failed = [i for i, ok in zip(failed, oks) if not ok]
+            legs["put_s"] = time.perf_counter() - t0
+            require(not failed, f"{len(failed)} puts failed three times")
+            getter = (putter[:n_gets] + 1
+                      + rng.integers(0, n - 1, size=n_gets)) % n
+            got = [[] for _ in range(n_gets)]
+
+            def get(i):
+                got[i] = []
+                return lambda done: net.nodes[getter[i]].get(
+                    keys[i], lambda vals: got[i].extend(
+                        (v.id, v.data) for v in vals) or True,
+                    lambda ok, ns: done(ok))
+            t0 = time.perf_counter()
+            windowed([get(i) for i in range(n_gets)])
+            missed = [i for i in range(n_gets) if got[i] != [want[i]]]
+            retried["gets"] = len(missed)
+            for _ in range(2):
+                if missed:
+                    windowed([get(i) for i in missed])
+                    missed = [i for i in missed if got[i] != [want[i]]]
+            legs["get_s"] = time.perf_counter() - t0
+            equal = sum(1 for i in range(n_gets) if got[i] == [want[i]])
+            require(equal == n_gets, f"{n_gets - equal} of {n_gets} gets "
+                    "did not return their put's value id and bytes")
+            legs["traffic"] = {
+                "puts": n_keys, "gets": n_gets, "equal_gets": equal,
+                "window": MONITOR_WINDOW, "retried": retried,
+                "puts_per_s": n_keys / legs["put_s"],
+                "gets_per_s": n_gets / legs["get_s"],
+                "getter_is_putter": int((getter == putter[:n_gets]).sum())}
+            require(legs["traffic"]["getter_is_putter"] == 0,
+                    "every get came from another node than its putter")
+            lookups.take()
+
+            # ---- (c) dhtmon with the coverage probe on the device ------
+            # the CLI as a child, its imports overlapping the legs below
+            # (the CLI scrapes over HTTP and has no device to choose)
+            t_cli = time.perf_counter()
+            cli = spawn("dhtmon", ["opendht_tpu_torch.tools.dhtmon",
+                                   "--nodes", ",".join(eps),
+                                   "--require-ready", "--json"],
+                        device_flag=False)
+            probed = []
+            closest_ids = hm.closest_ids
+
+            def recorded(table, ks, **kw):
+                out = closest_ids(table, ks, **kw)
+                probed.append((list(ks), out))
+                return out
+            hm.closest_ids = recorded
+            since = time.perf_counter() - t_phase + 60.0
+            checks = dict(require_ready=True, min_success=0.99,
+                          min_coverage=0.95, sample_max=n_keys, k=8,
+                          since=since, max_peer_fail=0.5,
+                          max_stage={"queue_wait": 5.0}, device=device)
+            try:
+                t0 = time.perf_counter()
+                window_select.launches = 0
+                violations, doc = dhtmon.run_checks(eps, runners=net.nodes,
+                                                    **checks)
+                sync()
+                launched = window_select.launches
+                legs["dhtmon_s"] = time.perf_counter() - t0
+            finally:
+                hm.closest_ids = closest_ids
+            probe_lookups = lookups.take()
+            cov = doc["replica_coverage"]
+            # the verdict is checked once the phase line is out, so that
+            # an unhealthy cluster still reports what the other legs saw
+            unhealthy = None
+            if violations:
+                unhealthy = {"violations": violations,
+                             "health": hm.scrape_node(eps[0])["health"]}
+            require(cov["keys"] == n_keys and len(probed) == 1
+                    and len(probed[0][0]) == n_keys,
+                    f"the probe resolved all {n_keys} keys in one call")
+            require([lk["q"] for lk in probe_lookups
+                     if lk["route"] == "snapshot"] == [n_keys],
+                    f"the probe took the device snapshot: {probe_lookups}")
+            if cuda:
+                require(launched >= 1, "the probe launched window_select")
+            # exact: the probe's closest-8 lists against a numpy XOR scan
+            # of the census, its held counts against a host recount
+            census = np.frombuffer(b"".join(bytes(r.get_node_id())
+                                            for r in net.nodes),
+                                   np.uint8).reshape(n, 20)
+            node_hex = [str(r.get_node_id()) for r in net.nodes]
+            held = hm.stored_keys(net.nodes)
+            per_key = {p["key"]: p for p in cov["per_key"]}
+            mismatched = 0
+            for key, ids in zip(*probed[0]):
+                exact = [node_hex[j] for j in closest_np(census, bytes(key),
+                                                         8)]
+                p = per_key[key.hex()]
+                if [str(i) for i in ids] != exact or (
+                        p["expected"], p["held"]) != (
+                        8, sum(1 for h in exact if h in held[key])):
+                    mismatched += 1
+            require(mismatched == 0, f"{mismatched} keys' closest-8 or held "
+                    "counts differ from the numpy scan and recount")
+            # the probe alone, timed and traced
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                hm.replica_coverage(net.nodes, sample_max=n_keys, k=8,
+                                    device=device)
+                sync()
+                probe_ms = (time.perf_counter() - t0) * 1e3
+            lookups.take()
+            legs["dhtmon"] = {
+                "violations": violations, "window_select_launches": launched,
+                "keys": cov["keys"], "mean_coverage": cov["mean_coverage"],
+                "min_coverage": cov["min_coverage"],
+                "closest8_equal_numpy": n_keys - mismatched,
+                "lookup_success": doc["lookup_success"],
+                "window_source": doc["window_source"],
+                "peer_fail_max": doc["peer_fail"]["max"],
+                "queue_wait_p95": doc["stages"]["worst"]["queue_wait"]["p95"],
+                "not_ready": [s["endpoint"] for s in doc["nodes"]
+                              if not s["ready"]],
+                "unhealthy": unhealthy,
+                "probe_ms": probe_ms,
+                "probe_device": device_totals(prof, cuda)}
+
+            # ---- (d) one directed link dropped: the wire map finds it --
+            t0 = time.perf_counter()
+            ia, ib = (int(i) for i in rng.choice(np.arange(1, n), 2,
+                                                 replace=False))
+            a, b = net.nodes[ia], net.nodes[ib]
+            plan = chaos.FaultPlan([chaos.Phase("drop", 0.0, None, rules=[
+                chaos.LinkRule(name="drop", src="a", dst="b", loss=1.0)])],
+                seed=args.seed)
+            net.arm(plan, groups={ia: "a", ib: "b"})
+            b_id = bytes(b.get_node_id())
+            near = [InfoHash(_near_id(b_id, 150, b"link-%d" % i))
+                    for i in range(MONITOR_LINK_KEYS)]
+            windowed([(lambda done, _k=k: a.get(
+                _k, lambda vals: True, lambda ok, ns: done(ok)))
+                for k in near])
+
+            def a_to_b():
+                return next((p for p in a.get_peers().get("peers", [])
+                             if p["id"] == str(b.get_node_id())), None)
+            require(_wait(lambda: (a_to_b() or {}).get("expired", 0) >= 3,
+                          30), f"A's requests to B expired: {a_to_b()}")
+            net.disarm()
+            docs = [wma.scrape_peers(ep) for ep in eps]
+            require(all(d is not None for d in docs), "every GET /peers")
+            wm = wma.assemble_wiremap(docs)
+            worst = wma.worst_edge(wm, "fail_ratio")
+            ranked = wma.rank_edges(wm, "fail_ratio")
+            found = worst is not None and (worst["src"], worst["dst"]) == (
+                str(a.get_node_id()), str(b.get_node_id()))
+            require(not wm["violations"], f"wire map: {wm['violations']}")
+            legs["wiremap"] = {
+                "edges": len(wm["edges"]), "nodes": len(wm["nodes"]),
+                "worst_is_the_dropped_link": found,
+                "top": [(e["src"][:8], e["dst"][:8], e["fail_ratio"])
+                        for e in ranked[:4]],
+                "worst": ({"src": worst["src"][:16],
+                           "dst": worst["dst"][:16],
+                           "fail_ratio": worst["fail_ratio"],
+                           "expired": worst.get("expired")}
+                          if worst is not None else None),
+                "next_fail_ratio": (ranked[1]["fail_ratio"]
+                                    if len(ranked) > 1 else None),
+                "s": time.perf_counter() - t0}
+
+            # the timeline over every node's history bundle
+            t0 = time.perf_counter()
+            tl = ta.assemble_timeline([r.dump_bundle() for r in net.nodes])
+            require(len(tl["nodes"]) == n and not tl["violations"]
+                    and tl["frames"], f"the timeline: {len(tl['nodes'])} "
+                    f"nodes, violations {tl['violations'][:3]}")
+            legs["timeline"] = {"nodes": len(tl["nodes"]),
+                                "frames": len(tl["frames"]),
+                                "events": len(tl["events"]),
+                                "violations": tl["violations"],
+                                "s": time.perf_counter() - t0}
+
+            # the CLI's report (before any node is shut down)
+            cli_out = finish("dhtmon", cli, rcs=(0, 1))
+            require(cli_out["doc"] is not None
+                    and len(cli_out["doc"]["nodes"]) == n
+                    and (cli_out["rc"] == 1) == bool(
+                        cli_out["doc"]["violations"]),
+                    f"the dhtmon CLI's report: {cli_out['doc']}")
+            require(not cli_out["jax_modules"], "the dhtmon child loaded no "
+                    f"JAX: {cli_out['jax_modules']}")
+            if cuda:
+                require(cli_out["rc"] == 0, "the dhtmon CLI exited 0")
+            legs["dhtmon_cli"] = {"rc": cli_out["rc"], "nodes": n,
+                                  "jax_modules": cli_out["jax_modules"],
+                                  "s": time.perf_counter() - t_cli}
+
+            # ---- (c) again: two nodes removed, coverage must fall -------
+            t0 = time.perf_counter()
+            for _ in range(2):
+                before = set(map(id, net.nodes))
+                net.shutdown_node()
+                gone = before - set(map(id, net.nodes))
+                for g in gone:
+                    by_runner.pop(g).stop()
+            window_select.launches = 0
+            v2, doc2 = dhtmon.run_checks(runners=net.nodes, min_coverage=1.0,
+                                         sample_max=n_keys, k=8,
+                                         device=device)
+            sync()
+            launched += window_select.launches
+            cov2 = doc2["replica_coverage"]
+            if len(net.nodes) > 8:
+                # with more than k=8 nodes left, the closest 8 of some
+                # keys now take in nodes that never held them; with 8 or
+                # fewer every node is among every key's closest 8
+                require(any("replica coverage" in v for v in v2)
+                        and cov2["mean_coverage"] < cov["mean_coverage"],
+                        f"two nodes removed: coverage "
+                        f"{cov2['mean_coverage']} (was "
+                        f"{cov['mean_coverage']}), violations {v2}")
+            legs["removal"] = {"nodes": len(net.nodes), "violations": v2,
+                               "mean_coverage": cov2["mean_coverage"],
+                               "keys": cov2["keys"],
+                               "s": time.perf_counter() - t0}
+            lookups.take()
+
+            # ---- (d) the harness CLIs' children -------------------------
+            for name, proc in children.items():
+                res = finish(name, proc)
+                require(not res["jax_modules"], f"the {name} child loaded "
+                        f"no JAX: {res['jax_modules']}")
+                legs[name] = res
+            require(legs["benchmark"]["doc"]["count"] == 16,
+                    f"benchmark: {legs['benchmark']['doc']}")
+            require(legs["pingpong"]["doc"]["count"] >= 1,
+                    f"pingpong: {legs['pingpong']['doc']}")
+            legs["children_s"] = time.perf_counter() - t_children
+    finally:
+        for proc in spawned:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for p in proxies:
+            p.stop()
+        if net is not None:
+            net.shutdown()
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(("dht", "proxy"))]
+    emit({"phase": "monitor", **card, "runners": n, "keys": n_keys,
+          **legs, "error_records": len(records.errors),
+          "delay_drops": len(records.delay_drops),
+          "planes_dark_records": len(records.dark), "live_threads": alive,
+          "phase_s": time.perf_counter() - t_phase})
+    if cuda:
+        # the verdict and the worst link depend on the cluster keeping
+        # up with its traffic: on the card they must hold; a rehearsal
+        # beside other busy processes reports them
+        require(legs["dhtmon"]["unhealthy"] is None, "dhtmon: the "
+                f"cluster is healthy as run: {legs['dhtmon']['unhealthy']}")
+        require(legs["wiremap"]["worst_is_the_dropped_link"], "the dropped "
+                f"link is the worst edge: {legs['wiremap']['top']}")
+    require(not records.errors, "no ERROR record from the port's loggers: "
+            + "; ".join(records.errors[:3]))
+    require(not records.dark, "no plane went dark: "
+            + "; ".join(records.dark[:3]))
+    require(not alive, f"every runner and proxy thread joined: {alive}")
+    return launched
 
 
 # Requests the planes phase's put client keeps unanswered (the node
@@ -4263,18 +4731,23 @@ def main(argv=None) -> int:
                     help="ids of the churn phase's NodeTable check")
     ap.add_argument("--serve-n", type=int, default=1_000_000,
                     help="rows of the live node (serve and runner phases)")
-    ap.add_argument("--serve-q", type=int, default=512,
+    ap.add_argument("--serve-q", type=int, default=256,
                     help="requests of the live node's burst (serve and "
                          "runner phases)")
     ap.add_argument("--serve-gets", type=int, default=1000,
                     help="Dht.get calls of the serve phase's config 1")
-    ap.add_argument("--proxy-keys", type=int, default=256,
+    ap.add_argument("--proxy-keys", type=int, default=64,
                     help="keys the proxy phase posts and gets over REST")
-    ap.add_argument("--pht-entries", type=int, default=32,
+    ap.add_argument("--pht-entries", type=int, default=16,
                     help="entries the proxy phase's PHT index inserts")
-    ap.add_argument("--planes-keys", type=int, default=4_000,
+    ap.add_argument("--monitor-runners", type=int, default=16,
+                    help="DhtRunners of the monitor phase's cluster")
+    ap.add_argument("--monitor-keys", type=int, default=256,
+                    help="keys the monitor phase puts (a quarter got back) "
+                         "and probes")
+    ap.add_argument("--planes-keys", type=int, default=500,
                     help="keys the planes phase's client puts")
-    ap.add_argument("--planes-gets", type=int, default=4096,
+    ap.add_argument("--planes-gets", type=int, default=2048,
                     help="Dht.get calls of the planes phase's Zipf stream")
     ap.add_argument("--scale-n", type=int, default=64_000_000,
                     help="ids of the scale phase's config 5 table")
@@ -4611,7 +5084,10 @@ def main(argv=None) -> int:
     if late("proxy"):
         # the proxied requests resolve on the live node: their
         # window_select launches join too
-        launches["window_select"] += proxy_phase_in_child(args, card)
+        launches["window_select"] += phase_in_child("proxy", args, card)
+    if late("monitor"):
+        # the coverage probe's resolves launch window_select
+        launches["window_select"] += phase_in_child("monitor", args, card)
     if late("planes"):
         # the planes phase's misses launch window_select too
         launches["window_select"] += planes_phase(args, dev, card, sync)

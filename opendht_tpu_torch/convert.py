@@ -8,8 +8,9 @@ numpy (``tbl._ids``, ``np.asarray(snap.sorted_ids)``, ``view.tomb_np``
 value store and its planes' state; :func:`secure_dht_from_jax` a node with its crypto overlay,
 and :func:`identity_from_jax` a key and certificate (through DER);
 :func:`proxy_server_from_jax` a REST proxy's permanent puts and push
-listeners.  Nothing here imports the JAX package: the JAX objects are read through
-their attributes and methods.
+listeners; :func:`stores_from_jax` a cluster's stored values, runner by
+runner.  Nothing here imports the JAX package: the JAX objects are read
+through their attributes and methods.
 """
 
 from __future__ import annotations
@@ -394,3 +395,57 @@ def proxy_server_from_jax(jax_server, runner, *, port: int = 0,
         dst.stats.put_count = len(dst._puts)
         dst.stats.push_listeners_count = len(dst._push_listeners)
     return dst
+
+
+def _restore_values(dht, items) -> None:
+    """Store ``(key bytes, packed value, created, expiration)`` items on
+    ``dht`` (a port ``Dht`` or ``SecureDht``), each keeping its
+    expiration."""
+    from .core.value import Value
+    for kb, packed, created, expiration in items:
+        key, value = InfoHash(kb), Value.from_packed(packed)
+        dht.storage_store(key, value, created)
+        st = dht.store.get(key)
+        for vs in (st.values if st is not None else ()):
+            if vs.data.id == value.id:
+                vs.expiration = expiration
+
+
+def stores_from_jax(jax_runners, port_runners, *,
+                    timeout: float = 30.0) -> int:
+    """Copy every value stored on a JAX cluster's runners (key, packed
+    value bytes, creation time and expiration) into the port runners
+    with the same node ids, so that the replica-coverage probe
+    (``testing.health_monitor.replica_coverage``) reads the same answer
+    over both clusters.  A running port runner stores them on its DHT
+    thread (waiting up to ``timeout`` s); any other object with a
+    ``_dht`` and ``get_node_id()`` directly.  Both clusters must share
+    a clock (the runners' monotonic one).  Raises KeyError for a JAX
+    runner no port runner matches.  Returns the values carried."""
+    import concurrent.futures
+    by_id = {bytes(r.get_node_id()): r for r in port_runners}
+    carried = 0
+    for jr in jax_runners:
+        dst = by_id.get(bytes(jr.get_node_id()))
+        if dst is None:
+            raise KeyError("no port runner has node id %s"
+                           % jr.get_node_id())
+        items = [(bytes(key), vs.data.get_packed(), vs.created,
+                  vs.expiration)
+                 for key, st in list(jr._dht.store.items())
+                 for vs in list(st.values)]
+        carried += len(items)
+        if getattr(dst, "is_running", lambda: False)():
+            done = concurrent.futures.Future()
+
+            def op(dht, _items=items, _done=done):
+                try:
+                    _restore_values(dht, _items)
+                    _done.set_result(None)
+                except Exception as e:         # handed to the caller
+                    _done.set_exception(e)
+            dst._post_node(op, prio=True)
+            done.result(timeout)
+        else:
+            _restore_values(dst._dht, items)
+    return carried

@@ -36,9 +36,13 @@ evaluation and a readiness verdict:
   ``dht_slo_*`` gauges on the same registry ``get_metrics()`` and the
   proxy ``GET /stats`` already export.
 
-Surfaces: ``DhtRunner.get_health()``; in the JAX package also the
-proxy's ``GET /healthz``, the REPL, the scanner and the cluster
-aggregator, which are not ported yet.
+Surfaces: ``DhtRunner.get_health()``, the proxy's ``GET /healthz``
+(readiness: 200/503 + JSON verdict, proxy/server.py), the ``health``
+REPL command in tools/dhtnode.py, the ``health`` section of
+``dhtscanner --json``, and the cluster aggregator
+(testing/health_monitor.py + tools/dhtmon.py) that scrapes every node
+and checks the cluster invariants (global lookup success, batched
+replica coverage).
 
 Reference mapping: the reference's only health surface is
 ``Dht::getNodesStats`` (src/dht.cpp:1424-1444) — raw routing counters a

@@ -1,23 +1,39 @@
 """Multi-node test/bench harness (↔ reference python/tools/dht/*).
 
-The port's copies of the JAX package's ``testing`` modules:
+The port's copies of the JAX package's ``testing`` modules, each on the
+CUDA card unless asked for the CPU (``device="cpu"``, or ``--cpu`` on
+its command line):
 
 - :class:`VirtualNet` — deterministic in-process virtual UDP network
   over the port's ``Dht`` cores with a virtual clock (replaces the
   reference's netns + netem tier, virtual_network_builder.py); its
   ``device=`` places every node's tables.
-- ``trace_assembler`` — cross-node span assembly and the tracing smoke.
+- :class:`DhtNetwork` — N real ``DhtRunner`` nodes on localhost UDP
+  (the reference's in-namespace node cluster, dht/network.py:283-436).
+- Scenario suites (↔ dht/tests.py): :class:`PerformanceTest` (gets
+  latency histograms, node-kill delete test), :class:`PersistenceTest`
+  (value survival under churn), :class:`LatencyStats`; their
+  command-line entry points ``python -m
+  opendht_tpu_torch.testing.benchmark`` (↔ benchmark.py) and
+  ``.pingpong``.
+- The monitor: ``health_monitor`` (the cluster aggregator and the
+  batched replica-coverage probe ``tools/dhtmon.py`` runs) and
+  ``telemetry_smoke`` (its ``parse_exposition``).
+- The assemblers: ``trace_assembler`` (one operation's span tree),
+  ``timeline_assembler`` (the cluster's metrics history) and
+  ``wiremap_assembler`` (the cluster's per-peer link graph).
 
-The JAX package's real-UDP cluster (``DhtNetwork``), its scenario suites
-(``PerformanceTest``, ``PersistenceTest``, ``LatencyStats``) and its
-other harness modules are not ported yet (ROADMAP A.6): asking for one
-of those names raises AttributeError saying so.
+The JAX package's cluster tools (``dhtcluster``, ``subproc_cluster``,
+``netns_net``, ``scanner``, ``http_server``, ``network_monitor``) and
+its other smokes are not ported yet (ROADMAP A.3 and A.5).
 """
 
 from .virtual_net import VirtualNet
 
-#: the JAX package's lazy exports that the port does not carry yet
-_NOT_PORTED = {
+# The real-UDP backends ride DhtRunner; resolve them lazily (PEP 562, as
+# the JAX package does) so a plain `import opendht_tpu_torch.testing`
+# stays as light as the virtual-clock tier it carries.
+_LAZY_EXPORTS = {
     "DhtNetwork": ".network",
     "PerformanceTest": ".scenarios",
     "PersistenceTest": ".scenarios",
@@ -25,13 +41,36 @@ _NOT_PORTED = {
 }
 
 
+#: the JAX package's ``testing`` modules the port does not carry yet,
+#: each with the ROADMAP item that takes it
+_NOT_PORTED = {
+    **dict.fromkeys(("dhtcluster", "subproc_cluster", "netns_net",
+                     "scanner", "http_server", "network_monitor"), "A.3"),
+    **dict.fromkeys(("cache_smoke", "chaos_smoke", "health_smoke",
+                     "history_smoke", "ingest_smoke", "keyspace_smoke",
+                     "ledger_smoke", "listener_smoke", "peer_smoke",
+                     "pipeline_smoke", "pipeline_util_smoke",
+                     "reshard_smoke", "waterfall_smoke"), "A.5"),
+}
+
+
 def __getattr__(name):
-    mod = _NOT_PORTED.get(name)
+    if name in _NOT_PORTED:
+        raise AttributeError(
+            f"opendht_tpu_torch.testing.{name} (testing/{name}.py) is not "
+            f"ported yet (ROADMAP {_NOT_PORTED[name]})")
+    mod = _LAZY_EXPORTS.get(name)
     if mod is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    raise AttributeError(
-        f"opendht_tpu_torch.testing.{name} (testing/{mod[1:]}.py) is not "
-        f"ported yet (ROADMAP A.6); VirtualNet and trace_assembler are")
+    import importlib
+    value = getattr(importlib.import_module(mod, __name__), name)
+    globals()[name] = value
+    return value
 
 
-__all__ = ["VirtualNet"]
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY_EXPORTS))
+
+
+__all__ = ["VirtualNet", "DhtNetwork", "PerformanceTest",
+           "PersistenceTest", "LatencyStats"]

@@ -7,9 +7,11 @@ sketch, hot-value cache, listener table) are at work; a signed put through the p
 ``device=None`` on a machine without a card raise instead of running on
 the CPU (the tools' ``setup_node`` without ``--cpu`` among them); the
 periphery (a REST proxy server and client, a PHT over the port's
-``VirtualNet``, the dhtnode REPL) loads no JAX module; and
+``VirtualNet``, the dhtnode REPL) loads no JAX module; nor does
+``dhtmon.run_checks`` over a ``DhtNetwork`` with its coverage probe; and
 ``chip_smoke.py`` fails without a card and rehearses every phase on the
-CPU, the proxy phase included, without claiming a chip run."""
+CPU, the proxy and monitor phases included, without claiming a chip
+run."""
 
 import json
 import os
@@ -32,7 +34,8 @@ from opendht_tpu_torch.ops import radix
 from opendht_tpu_torch import bench, chaos, profiling, telemetry
 from opendht_tpu_torch.ops import swarm
 from opendht_tpu_torch.parallel import make_mesh
-from opendht_tpu_torch.testing import VirtualNet
+from opendht_tpu_torch.testing import (DhtNetwork, VirtualNet, benchmark,
+                                       pingpong, telemetry_smoke)
 from opendht_tpu_torch.tools.common import make_arg_parser, setup_node
 from opendht_tpu_torch.waterfall import OpenBoundTracker
 
@@ -72,7 +75,11 @@ def test_importing_the_port_loads_no_jax():
                 "proxy.push", "indexation", "indexation.pht", "testing",
                 "testing.virtual_net", "testing.trace_assembler", "tools",
                 "tools.common", "tools.dhtnode", "tools.dhtchat",
-                "tools.dhtscanner", "tools.compat_check"):
+                "tools.dhtscanner", "tools.compat_check",
+                "testing.telemetry_smoke", "testing.health_monitor",
+                "testing.timeline_assembler", "testing.wiremap_assembler",
+                "testing.network", "testing.scenarios", "testing.benchmark",
+                "testing.pingpong", "tools.dhtmon"):
         assert f"opendht_tpu_torch.{mod}" in want
 
 
@@ -297,6 +304,54 @@ def test_the_periphery_loads_no_jax_module():
                    "pht": [True, True, 1], "bad": []}
 
 
+_MONITOR_PROBE = """
+import json, sys
+from opendht_tpu_torch.core.value import Value
+from opendht_tpu_torch.infohash import InfoHash
+from opendht_tpu_torch.proxy import DhtProxyServer
+from opendht_tpu_torch.runtime import Config
+from opendht_tpu_torch.testing import DhtNetwork
+from opendht_tpu_torch.testing import timeline_assembler, wiremap_assembler
+from opendht_tpu_torch.tools import dhtmon
+net = DhtNetwork(4, config=Config(max_req_per_sec=100000), device="cpu")
+servers = [DhtProxyServer(r, port=0) for r in net.nodes]
+try:
+    connected = net.wait_connected(120)
+    net.put(InfoHash.get("monitor-probe-warm"), Value(b"w"), timeout=60)
+    put = net.put(InfoHash.get("monitor-probe"), Value(b"v"), timeout=60)
+    eps = ["127.0.0.1:%d" % s.port for s in servers]
+    violations, doc = dhtmon.run_checks(eps, runners=net.nodes,
+                                        require_ready=True, device="cpu")
+    wm = wiremap_assembler.assemble_wiremap(
+        [wiremap_assembler.scrape_peers(ep) for ep in eps])
+    tl = timeline_assembler.assemble_timeline(
+        [r.dump_bundle() for r in net.nodes])
+finally:
+    for s in servers:
+        s.stop()
+    net.shutdown()
+print(json.dumps({
+    "connected": connected, "put": put, "violations": violations,
+    "keys": doc["replica_coverage"]["keys"], "nodes": len(wm["nodes"]),
+    "timeline": len(tl["nodes"]),
+    "bad": sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "opendht_tpu",
+                                         "msgpack"))}))
+"""
+
+
+def test_dhtmon_over_a_dhtnetwork_loads_no_jax_module():
+    """``dhtmon.run_checks`` with its coverage probe over a
+    ``device="cpu"`` ``DhtNetwork`` behind REST proxies, and both
+    assemblers over it, load neither JAX nor ``opendht_tpu``."""
+    out = subprocess.run([sys.executable, "-c", _MONITOR_PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=240,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"connected": True, "put": True, "violations": [],
+                   "keys": 2, "nodes": 4, "timeline": 4, "bad": []}
+
+
 def test_port_sources_name_no_jax_import():
     for path in (REPO / "opendht_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
@@ -353,6 +408,11 @@ def _entry_points():
         "tools.setup_node": lambda: setup_node(
             make_arg_parser("t").parse_args([])),
         "VirtualNet": lambda: VirtualNet(),
+        "DhtNetwork": lambda: DhtNetwork(1),
+        "benchmark.main": lambda: benchmark.main(["-t", "delete", "-n",
+                                                  "4"]),
+        "pingpong.main": lambda: pingpong.main(["-n", "1"]),
+        "telemetry_smoke.main": lambda: telemetry_smoke.main([]),
     }
 
 
@@ -406,6 +466,7 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
                       "--planes-gets", "600", "--scale-n", "20000",
                       "--scale-q", "256", "--swarm-n", "2048",
                       "--proxy-keys", "64", "--pht-entries", "17",
+                      "--monitor-runners", "8", "--monitor-keys", "128",
                       records=tmp_path)
     assert out.returncode == 3, out.stderr[-2000:]
     lines = [json.loads(l) for l in out.stdout.splitlines()
@@ -413,7 +474,8 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
     phases = [l.get("phase") for l in lines]
     assert phases[:-1] == ["device", "main", "parity", "timing", "profile",
                            "memory", "search", "maintenance", "churn",
-                           "serve", "runner", "proxy", "planes", "scale",
+                           "serve", "runner", "proxy", "monitor", "planes",
+                           "scale",
                            "ledger",
                            "ledger_q1_split", "swarm", "swarm_oracle",
                            "bench", "timing_gate"]
@@ -464,6 +526,18 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
     assert (proxy["error_records"], proxy["ingest_wave_failures"]) == (0, 0)
     assert proxy["datagrams_sent"]["off_loopback"] == 0
     assert proxy["live_threads"] == []
+    monitor = lines[phases.index("monitor")]
+    assert (monitor["runners"], monitor["keys"]) == (8, 128)
+    assert monitor["traffic"]["equal_gets"] == 32
+    assert monitor["dhtmon"]["keys"] == 128
+    assert monitor["dhtmon"]["closest8_equal_numpy"] == 128
+    assert monitor["timeline"]["nodes"] == 8
+    assert monitor["timeline"]["violations"] == []
+    assert monitor["removal"]["nodes"] == 6
+    for child in ("dhtmon_cli", "benchmark", "pingpong"):
+        assert monitor[child]["jax_modules"] == [], child
+    assert monitor["benchmark"]["doc"]["count"] == 16
+    assert monitor["error_records"] == 0 and monitor["live_threads"] == []
     planes = lines[phases.index("planes")]
     assert planes["puts"]["keys"] == 200
     assert planes["gets"]["gets"] == 600
