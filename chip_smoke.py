@@ -320,9 +320,11 @@ Phases, one JSON line each:
              a numpy XOR scan of the census and its held counts a host
              recount; the probe alone is timed and profiled; ``python -m
              opendht_tpu_torch.tools.dhtmon --require-ready --json`` as a
-             child.  (d) a chaos LinkRule dropping one directed link, 8
-             gets driven over it: assemble_wiremap over every GET /peers
-             names it worst_edge(fail_ratio); assemble_timeline over
+             child.  (d) a chaos LinkRule dropping one directed link, 16
+             gets driven over it at once: assemble_wiremap over every GET
+             /peers ranks it first by fail_ratio among the edges that
+             dhtmon's max_peer_fail gate reads (those past
+             PeersConfig.min_signal_events requests); assemble_timeline over
              every node's history bundle; the benchmark (-t gets) and
              pingpong CLIs as children started with the phase (on the
              card; --cpu only in the rehearsal), each exiting 0 and
@@ -331,6 +333,34 @@ Phases, one JSON line each:
              the mean coverage falls.  On the card the cluster must be
              healthy as run (no violation) and the dropped link the
              worst edge; the rehearsal reports both.
+20. cluster — (run after monitor, in a process of its own) the cluster
+             tools on the card.  --cluster-children (4) subprocess
+             clusters (testing/subproc_cluster.py) of --cluster-nodes (8)
+             nodes each, started at once, each child on the card: 32
+             nodes, dhtcluster's default.  Children 1-3 and a parent
+             DhtRunner bootstrap into child 0.  Per child: seconds from
+             spawn to its launch reply, its card memory (by pid where
+             nvidia-smi lists it, else the card's use before and after)
+             and the JAX libraries in its /proc/<pid>/maps (none).
+             --cluster-keys (65) distinct seeded keys put through the
+             children round-robin (one parent thread per child) and got
+             through the next child, each equal to its put; puts/s.  A
+             Scanner crawl from the parent runner finds every child's
+             node and nothing else but the parent (the port's scanner
+             splits its crawl; the JAX copy's stops after one probe,
+             ROADMAP C.3).  The census: the closest 8 of every key over
+             the 33 ids in one NodeTable call through the device snapshot
+             (window_select), equal to a numpy scan, timed, then again
+             under the profiler; both calls' launches counted (the
+             children's warm-up launches, one a child, are in other
+             processes and not counted).  Child
+             0 SIGKILLed: every key put through it got back from the
+             others.  network_monitor over the survivors (8 keys, 2
+             rounds, exit 0).  DhtHttpServer over the parent runner: a
+             form POST read back by GET.  Where network namespaces can be
+             made, NetnsClusterNet with two namespaced clusters of 4 on
+             the card, a put in one got from the other ("unavailable"
+             otherwise).  Every child exits, no thread is left.
 
 The smoke-record directory is $OPENDHT_TPU_SMOKE_RECORD_DIR, else
 build/smoke_records beside this script: ``python -m
@@ -377,8 +407,8 @@ SERVE_WINDOW = 4
 RUNNER_VALUES = 64
 # the phases after main, in their order; --phases picks some of them
 LATE_PHASES = ("search", "maintenance", "churn", "serve", "runner",
-               "proxy", "monitor", "planes", "scale", "ledger", "swarm",
-               "bench")
+               "proxy", "monitor", "cluster", "planes", "scale", "ledger",
+               "swarm", "bench")
 
 
 def emit(obj) -> None:
@@ -2504,8 +2534,8 @@ def jax_modules(mods) -> list:
 
 
 def phase_in_child(name: str, args, card) -> int:
-    """Run the late phase ``name`` (proxy, monitor) in a process of its
-    own, as a server runs: a fresh interpreter, heap and metrics
+    """Run the late phase ``name`` (proxy, monitor, cluster) in a process
+    of its own, as a server runs: a fresh interpreter, heap and metrics
     registry, none of what the earlier phases left (their nodes'
     per-peer series alone are ~22,000, and each history tick of a node
     walks every series on its thread).  Passes its output lines on;
@@ -2532,7 +2562,8 @@ def phase_child() -> int:
     """A late phase's process (see phase_in_child): argv holds the
     phase's name, the script's arguments and the card record, as JSON."""
     import torch
-    phase = {"proxy": proxy_phase, "monitor": monitor_phase}[sys.argv[1]]
+    phase = {"proxy": proxy_phase, "monitor": monitor_phase,
+             "cluster": cluster_phase}[sys.argv[1]]
     args = argparse.Namespace(**json.loads(sys.argv[2]))
     card = json.loads(sys.argv[3])
     if args.cpu:
@@ -3042,9 +3073,11 @@ def proxy_phase(args, dev, card, sync) -> int:
 
 # ---- the monitor phase (phase 19) --------------------------------------
 # Puts and gets the monitor phase's cluster keeps unanswered, and the
-# keys it drives from one node towards the peer behind the dropped link.
+# keys it drives from one node towards the peer behind the dropped link:
+# a window's worth, all in flight before A's first request to B expires
+# (that expiry marks B expired in A's table and A sends it nothing more).
 MONITOR_WINDOW = 16
-MONITOR_LINK_KEYS = 8
+MONITOR_LINK_KEYS = MONITOR_WINDOW
 
 
 def closest_np(ids: np.ndarray, key: bytes, k: int) -> list:
@@ -3064,6 +3097,7 @@ def monitor_phase(args, dev, card, sync) -> int:
     from opendht_tpu_torch.core.value import Value
     from opendht_tpu_torch.infohash import InfoHash
     from opendht_tpu_torch.ops.window_select import window_select
+    from opendht_tpu_torch.peers import PeersConfig
     from opendht_tpu_torch.proxy import DhtProxyServer
     from opendht_tpu_torch.runtime import Config
     from opendht_tpu_torch.testing import DhtNetwork
@@ -3343,16 +3377,30 @@ def monitor_phase(args, dev, card, sync) -> int:
             docs = [wma.scrape_peers(ep) for ep in eps]
             require(all(d is not None for d in docs), "every GET /peers")
             wm = wma.assemble_wiremap(docs)
-            worst = wma.worst_edge(wm, "fail_ratio")
-            ranked = wma.rank_edges(wm, "fail_ratio")
+            # the edges dhtmon's max_peer_fail gate reads: a link's fail
+            # ratio is published once it has carried min_signal_events
+            # requests. Dropping A -> B also drops A's replies, so B's
+            # few requests to A fail too; below that floor they are no
+            # signal to the gate, and none to this ranking
+            floor = PeersConfig.min_signal_events
+            every = wma.rank_edges(wm, "fail_ratio")
+            ranked = [e for e in every if e.get("sent", 0) >= floor]
+            worst = ranked[0] if ranked else None
             found = worst is not None and (worst["src"], worst["dst"]) == (
                 str(a.get_node_id()), str(b.get_node_id()))
             require(not wm["violations"], f"wire map: {wm['violations']}")
             legs["wiremap"] = {
                 "edges": len(wm["edges"]), "nodes": len(wm["nodes"]),
+                "signal_floor": floor,
+                "edges_below_floor": len(every) - len(ranked),
                 "worst_is_the_dropped_link": found,
-                "top": [(e["src"][:8], e["dst"][:8], e["fail_ratio"])
+                "top": [(e["src"][:8], e["dst"][:8], e["fail_ratio"],
+                         e.get("sent"))
                         for e in ranked[:4]],
+                "top_below_floor": [(e["src"][:8], e["dst"][:8],
+                                     e["fail_ratio"], e.get("sent"))
+                                    for e in every[:4]
+                                    if e.get("sent", 0) < floor],
                 "worst": ({"src": worst["src"][:16],
                            "dst": worst["dst"][:16],
                            "fail_ratio": worst["fail_ratio"],
@@ -3459,6 +3507,340 @@ def monitor_phase(args, dev, card, sync) -> int:
     require(not records.dark, "no plane went dark: "
             + "; ".join(records.dark[:3]))
     require(not alive, f"every runner and proxy thread joined: {alive}")
+    return launched
+
+
+# ---- the cluster phase (phase 20) --------------------------------------
+# The RPC limit of the cluster phase's children: above the 30 s a child's
+# own put_sync / get_sync may wait on a search past a killed child.
+CLUSTER_RPC_S = 120.0
+# Keys the cluster phase's monitor probes a round, and its rounds.
+CLUSTER_MONITOR_KEYS = 8
+CLUSTER_MONITOR_ROUNDS = 2
+
+
+def card_memory() -> dict:
+    """The card's memory in use (MiB) and each compute process's, by pid,
+    as nvidia-smi lists them (a container may list no pid)."""
+    used = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    by_pid = {}
+    for line in apps.splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit() and mib.strip().isdigit():
+            by_pid[int(pid)] = int(mib)
+    return {"used_mib": int(used), "by_pid": by_pid}
+
+
+def jax_libraries(pid: int) -> list:
+    """The JAX libraries mapped into process ``pid`` (/proc/<pid>/maps)."""
+    return sorted({l.split()[-1] for l in
+                   Path(f"/proc/{pid}/maps").read_text().splitlines()
+                   if re.search(r"/(jax|jaxlib|libtpu)[/_.-]", l)})
+
+
+def cluster_phase(args, dev, card, sync) -> int:
+    """The cluster tools (see the module docstring, phase 20).  Returns
+    the window_select launches of the census's two calls."""
+    import contextlib
+    import io
+    import urllib.parse
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.ops.window_select import window_select
+    from opendht_tpu_torch.runtime.config import NodeStatus
+    from opendht_tpu_torch.runtime.runner import DhtRunner
+    from opendht_tpu_torch.testing import health_monitor as hm
+    from opendht_tpu_torch.testing import netns_net, network_monitor
+    from opendht_tpu_torch.testing.http_server import DhtHttpServer
+    from opendht_tpu_torch.testing.scanner import Scanner
+    from opendht_tpu_torch.testing.subproc_cluster import ClusterSubProcess
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    device = None if cuda else "cpu"
+    C, per, n_keys = (args.cluster_children, args.cluster_nodes,
+                      args.cluster_keys)
+    require(C >= 2 and per >= 1 and n_keys > 64, "the cluster phase needs "
+            "two children and more than 64 keys (the census's device route)")
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                     else [])
+    legs, children, runner, http, launched = {}, [], None, None, 0
+    pool = ThreadPoolExecutor(max_workers=C)
+
+    def each(fn, items) -> list:
+        """``fn`` over ``items``, one parent thread each (an RPC blocks)."""
+        return list(pool.map(fn, items))
+
+    try:
+        with PortRecords() as records, \
+                LookupRoutes(cuda, sync) as lookups:
+            # ---- 1. the children, started at once -----------------------
+            if cuda:
+                # this process's own context first: the card's memory
+                # before and after the children's start differs by theirs
+                torch.zeros(1, device=dev)
+                sync()
+            mem0 = card_memory() if cuda else None
+            t0 = time.perf_counter()
+            spawn_t = []
+            for _ in range(C):
+                spawn_t.append(time.perf_counter())
+                children.append(ClusterSubProcess(timeout=CLUSTER_RPC_S,
+                                                  device=device))
+            if cuda:
+                # a process's first profiler session starts CUPTI (6.4 s
+                # on the card's host): pay it while the children boot
+                with profile(activities=acts):
+                    pass
+
+            def launch(i):
+                children[i].launch(per)
+                return time.perf_counter() - spawn_t[i]
+            start_s = each(launch, range(C))
+            legs["start_s"] = time.perf_counter() - t0
+            mem1 = card_memory() if cuda else None
+            t0 = time.perf_counter()
+            seed = ("127.0.0.1", children[0].ports[0])
+            each(lambda c: c.bootstrap(*seed), children[1:])
+            runner = DhtRunner()
+            runner.run(0, device=device)
+            runner.bootstrap(*seed)
+            require(_wait(lambda: runner.get_status()
+                          is NodeStatus.CONNECTED, 30),
+                    "the parent runner connected")
+            legs["connect_s"] = time.perf_counter() - t0
+            pids = [c.proc.pid for c in children]
+            legs["children"] = [{
+                "pid": pid, "start_s": s, "nodes": len(c.ports),
+                "card_mib": (mem1["by_pid"].get(pid, "not listed")
+                             if cuda else "not measured"),
+                "jax_libraries": jax_libraries(pid)}
+                for pid, s, c in zip(pids, start_s, children)]
+            legs["card_memory"] = (
+                {"used_before_mib": mem0["used_mib"],
+                 "used_after_mib": mem1["used_mib"],
+                 "per_child_mib": (mem1["used_mib"] - mem0["used_mib"]) / C,
+                 "pids_listed": sum(p in mem1["by_pid"] for p in pids)}
+                if cuda else "not measured")
+            require(all(len(c.ports) == per for c in children),
+                    f"every child launched {per} nodes")
+            require(not any(ch["jax_libraries"] for ch in legs["children"]),
+                    "no child mapped a JAX library: "
+                    f"{[ch['jax_libraries'] for ch in legs['children']]}")
+
+            # ---- 2. traffic: puts round-robin, gets through the next ----
+            rng = np.random.default_rng(args.seed + 20)
+            raw = rng.integers(0, 256, size=(n_keys, 20), dtype=np.uint8)
+            keys = [raw[i].tobytes() for i in range(n_keys)]
+            require(len(set(keys)) == n_keys, "distinct keys")
+            want = [b"cluster value %d" % i for i in range(n_keys)]
+
+            def puts(ci):
+                return [children[ci].put(keys[i], want[i])
+                        for i in range(ci, n_keys, C)]
+            t0 = time.perf_counter()
+            stored = sum(sum(r) for r in each(puts, range(C)))
+            put_s = time.perf_counter() - t0
+            got = [None] * n_keys
+
+            def gets(ci):
+                for i in range(ci, n_keys, C):
+                    got[i] = children[(ci + 1) % C].get(keys[i])
+            t0 = time.perf_counter()
+            each(gets, range(C))
+            get_s = time.perf_counter() - t0
+            equal = sum(got[i] == [want[i]] for i in range(n_keys))
+            legs["traffic"] = {
+                "puts": n_keys, "stored": stored, "equal_gets": equal,
+                "put_s": put_s, "get_s": get_s,
+                "puts_per_s": n_keys / put_s, "gets_per_s": n_keys / get_s,
+                "threads": C}
+            require(stored == n_keys, f"{n_keys - stored} puts not stored")
+            require(equal == n_keys, f"{n_keys - equal} of {n_keys} gets "
+                    "differ from their put")
+
+            # ---- 3. the crawl from the parent runner --------------------
+            # it must find every child's node, and nothing outside the
+            # cluster but the parent itself
+            t0 = time.perf_counter()
+            ids = {i for c in children for i in c.node_ids()}
+            me = bytes(runner.get_node_id())
+            sc = Scanner(runner)
+            sc.scan(timeout=60.0)
+            found = {bytes(e.get_id()) for e in sc.all_nodes}
+            summary = sc.summary()
+            legs["crawl"] = {
+                "probes": sc.probes, "found": len(found), "ids": len(ids),
+                "found_self": me in found, "missing": len(ids - found),
+                "extra": len(found - ids - {me}), "geo": summary["geo"],
+                "s": time.perf_counter() - t0}
+            require(len(ids) == C * per, "the children's ids are distinct")
+            require(ids <= found <= ids | {me},
+                    f"the crawl equals the children's ids: {legs['crawl']}")
+
+            # ---- 4. the census: closest 8 of every key, one device call -
+            t_census = time.perf_counter()
+            census_ids = sorted(ids | {me})
+            now = time.monotonic()
+            table = hm.census_table([(InfoHash(i), None) for i in census_ids],
+                                    now, device=device)
+            hkeys = [InfoHash(k) for k in keys]
+            lookups.take()
+            window_select.launches = 0
+            t0 = time.perf_counter()
+            closest = hm.closest_ids(table, hkeys, k=8, now=now,
+                                     device=device)
+            sync()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            launched = window_select.launches
+            routes = lookups.take()
+            require([lk["q"] for lk in routes if lk["route"] == "snapshot"]
+                    == [n_keys], f"the census took the snapshot: {routes}")
+            if cuda:
+                require(launched >= 1, "the census launched window_select")
+            census_np = np.frombuffer(b"".join(census_ids),
+                                      np.uint8).reshape(-1, 20)
+            exact = sum([bytes(h) for h in closest[q]]
+                        == [census_ids[j] for j in
+                            closest_np(census_np, keys[q], 8)]
+                        for q in range(n_keys))
+            with profile(activities=acts) as prof:
+                hm.closest_ids(table, hkeys, k=8, now=now, device=device)
+                sync()
+            lookups.take()
+            launched = window_select.launches
+            legs["census"] = {
+                "ids": len(census_ids), "keys": n_keys, "k": 8,
+                "closest8_equal_numpy": exact, "route": routes[0]["route"],
+                "stream_ms": routes[0]["stream_ms"],
+                "window_select_launches": launched, "host_ms": host_ms,
+                "device": device_totals(prof, cuda),
+                "s": time.perf_counter() - t_census}
+            require(exact == n_keys, f"{n_keys - exact} closest-8 lists "
+                    "differ from the numpy scan")
+
+            # ---- 5. kill child 0: its keys from the survivors -----------
+            t0 = time.perf_counter()
+            children[0].kill()
+            victims = list(range(0, n_keys, C))
+            back = {}
+
+            def survivors_get(si):
+                for i in victims[si::C - 1]:
+                    back[i] = children[1 + si].get(keys[i])
+            each(survivors_get, range(C - 1))
+            kept = sum(back[i] == [want[i]] for i in victims)
+            legs["kill"] = {"killed_pid": pids[0],
+                            "rc": children[0].proc.returncode,
+                            "keys": len(victims), "got_back": kept,
+                            "s": time.perf_counter() - t0}
+            require(kept == len(victims), f"{len(victims) - kept} of the "
+                    "killed child's keys were not got back")
+
+            # ---- 6. network_monitor over the survivors -------------------
+            t0 = time.perf_counter()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                mon_rc = network_monitor.main(
+                    ["-b", "127.0.0.1:%d" % children[1].ports[0],
+                     "-n", str(CLUSTER_MONITOR_KEYS), "--rounds",
+                     str(CLUSTER_MONITOR_ROUNDS), "-p", "0", "-t", "30"]
+                    + ([] if cuda else ["--cpu"]))
+            rounds = [re.search(r"in ([0-9.]+) \| round-trip p50=([0-9.]+)s"
+                                r" p95=([0-9.]+)s", l)
+                      for l in out.getvalue().splitlines()]
+            rounds = [tuple(map(float, m.groups())) for m in rounds if m]
+            legs["monitor"] = {
+                "rc": mon_rc, "keys": CLUSTER_MONITOR_KEYS,
+                "rounds": [{"s": r[0], "p50_s": r[1], "p95_s": r[2]}
+                           for r in rounds],
+                "s": time.perf_counter() - t0}
+            require(mon_rc == 0 and len(rounds) == CLUSTER_MONITOR_ROUNDS,
+                    f"the monitor's rounds: {out.getvalue()[-400:]}")
+
+            # ---- 7. the HTTP front over the parent runner ----------------
+            t0 = time.perf_counter()
+            http = DhtHttpServer(runner, http_port=0)
+            base = "http://127.0.0.1:%d/cluster-http-key" % http.port
+            body = urllib.parse.urlencode({"data": "over http",
+                                           "id": "77"}).encode()
+            with urllib.request.urlopen(base, data=body, timeout=60) as r:
+                posted = json.loads(r.read())
+            with urllib.request.urlopen(base, timeout=60) as r:
+                read = json.loads(r.read())
+            legs["http"] = {"post": posted, "get": read,
+                            "equal": read == {"4d": {"base64":
+                                                     "b3ZlciBodHRw"}},
+                            "s": time.perf_counter() - t0}
+            require(posted == {"success": True} and legs["http"]["equal"],
+                    f"the HTTP round trip: {posted} {read}")
+
+            # ---- 8. two clusters in network namespaces, where possible ---
+            legs["netns"] = "unavailable"
+            if netns_net.netns_available():
+                t0 = time.perf_counter()
+                seed_node = DhtRunner()
+                seed_node.run(0, device=device)
+                net = netns_net.NetnsClusterNet(device=device)
+                try:
+                    a = net.add_cluster(4, timeout=CLUSTER_RPC_S)
+                    b = net.add_cluster(4, timeout=CLUSTER_RPC_S)
+                    port = seed_node.get_bound_port()
+                    a.bootstrap(net.gateway_addr(0), port)
+                    b.bootstrap(net.gateway_addr(1), port)
+                    nkey = bytes(InfoHash.get("cluster-netns-%d" % args.seed))
+                    ok = a.put(nkey, b"across namespaces")
+                    vals = b.get(nkey)
+                finally:
+                    net.close()
+                    seed_node.join()
+                legs["netns"] = {"namespaces": 2, "nodes_each": 4,
+                                 "stored": ok,
+                                 "equal": vals == [b"across namespaces"],
+                                 "s": time.perf_counter() - t0}
+                require(ok and legs["netns"]["equal"],
+                        f"the netns put / get: {ok} {vals}")
+
+            # ---- 9. shut down ---------------------------------------------
+            t0 = time.perf_counter()
+            legs["msgs"] = each(lambda c: c.stats()["msgs"], children[1:])
+            each(lambda c: c.quit(), children[1:])
+            graceful = sum(c.proc.returncode == 0 for c in children[1:])
+            legs["shutdown"] = {"graceful": graceful, "killed": 1,
+                                "s": time.perf_counter() - t0}
+    finally:
+        t0 = time.perf_counter()
+        pool.shutdown(wait=True)
+        for c in children:
+            if c.proc.poll() is None:
+                c.kill()
+        if http is not None:
+            http.stop()
+        if runner is not None:
+            runner.join()
+        legs["teardown_s"] = time.perf_counter() - t0
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(("dht", "proxy"))]
+    exited = [c.proc.returncode for c in children]
+    emit({"phase": "cluster", **card, "children_n": C,
+          "nodes_per_child": per, "nodes": C * per, "keys": n_keys, **legs,
+          "children_exited": exited, "error_records": len(records.errors),
+          "delay_drops": len(records.delay_drops), "live_threads": alive,
+          "phase_s": time.perf_counter() - t_phase})
+    require(not records.errors, "no ERROR record from the port's loggers: "
+            + "; ".join(records.errors[:3]))
+    require(None not in exited, "every child exited")
+    require(not alive, f"every runner and HTTP thread joined: {alive}")
     return launched
 
 
@@ -4745,6 +5127,14 @@ def main(argv=None) -> int:
     ap.add_argument("--monitor-keys", type=int, default=256,
                     help="keys the monitor phase puts (a quarter got back) "
                          "and probes")
+    ap.add_argument("--cluster-children", type=int, default=4,
+                    help="child processes of the cluster phase")
+    ap.add_argument("--cluster-nodes", type=int, default=8,
+                    help="nodes in each child of the cluster phase")
+    ap.add_argument("--cluster-keys", type=int, default=65,
+                    help="keys the cluster phase puts, gets and resolves "
+                         "(more than 64: the census's device route; 128 "
+                         "cut to 65 for the full run's time)")
     ap.add_argument("--planes-keys", type=int, default=500,
                     help="keys the planes phase's client puts")
     ap.add_argument("--planes-gets", type=int, default=2048,
@@ -5088,6 +5478,9 @@ def main(argv=None) -> int:
     if late("monitor"):
         # the coverage probe's resolves launch window_select
         launches["window_select"] += phase_in_child("monitor", args, card)
+    if late("cluster"):
+        # the census over the subprocess cluster launches window_select
+        launches["window_select"] += phase_in_child("cluster", args, card)
     if late("planes"):
         # the planes phase's misses launch window_select too
         launches["window_select"] += planes_phase(args, dev, card, sync)

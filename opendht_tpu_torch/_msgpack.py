@@ -27,11 +27,18 @@ decodes as UTF-8 (strict), bin as bytes, arrays as lists, maps as dicts
 (any hashable key), float32 and float64 as float.  Errors are
 ValueError subclasses as in the wheel: :class:`ExtraData` for trailing
 bytes, ValueError for incomplete input, :class:`FormatError` for the
-never-used byte 0xc1, UnicodeDecodeError for bad UTF-8; an unhashable
-map key raises TypeError.  One difference: every ext type, the
-timestamp type -1 included, decodes as :class:`ExtType` (the wheel
-turns -1 into its own ``Timestamp``); no packet or value of the
-protocol carries an ext type.
+never-used byte 0xc1, :class:`StackError` past 1,024 nested containers
+(an object nested deeper than recursion allows is decoded on an explicit
+stack, so any depth the wheel takes decodes),
+UnicodeDecodeError for bad UTF-8; an unhashable map key raises
+TypeError.  One difference: every ext type, the timestamp type -1
+included, decodes as :class:`ExtType` (the wheel turns -1 into its own
+``Timestamp``); no packet or value of the protocol carries an ext type.
+
+:class:`Unpacker` is the wheel's fed ``msgpack.Unpacker(raw=...)``:
+``feed`` and iteration, the wheel's default buffer and length limits
+and its errors (``BufferFull``, ``OutOfData``).  A stream of frames, as
+a subprocess cluster's RPC channel carries, is read with it.
 """
 
 from __future__ import annotations
@@ -40,22 +47,42 @@ import struct
 from collections import namedtuple
 from typing import Any, Iterator
 
-__all__ = ["packb", "unpackb", "unpack_stream", "ExtType", "ExtraData",
-           "FormatError"]
+__all__ = ["packb", "unpackb", "unpack_stream", "Unpacker", "ExtType",
+           "UnpackException", "ExtraData", "FormatError", "StackError",
+           "BufferFull", "OutOfData"]
 
 ExtType = namedtuple("ExtType", "code data")
 
 
-class ExtraData(ValueError):
+class UnpackException(Exception):
+    """Base of the decoder's own errors, as in the wheel."""
+
+
+class ExtraData(ValueError, UnpackException):
     """``unpackb`` found bytes after the first object."""
 
 
-class FormatError(ValueError):
+class FormatError(ValueError, UnpackException):
     """The input holds a byte that no msgpack type starts with."""
+
+
+class StackError(ValueError, UnpackException):
+    """The input nests more than MAX_DEPTH containers."""
+
+
+class BufferFull(UnpackException):
+    """``Unpacker.feed`` would hold more than MAX_BUFFER_SIZE bytes."""
+
+
+class OutOfData(UnpackException):
+    """``Unpacker.unpack`` found no complete object."""
 
 
 class _OutOfData(Exception):
     """The input ended inside an object (internal)."""
+
+
+_NO_KEY = object()       # a map entry whose key is not read yet
 
 
 _B = struct.Struct(">B").pack
@@ -221,16 +248,44 @@ _SIZED = {
 }
 _FIXEXT = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
 
+#: containers open at once, as the wheel's unpacker stack allows
+MAX_DEPTH = 1024
+#: an Unpacker's buffer, as the wheel's default ``max_buffer_size``; an
+#: array header may declare at most this many entries and a map header
+#: half as many (the wheel's ``max_array_len`` / ``max_map_len``)
+MAX_BUFFER_SIZE = 100 * 1024 * 1024
+#: nesting decoded by recursion; a deeper object is decoded again on an
+#: explicit stack (Python's recursion limit is below MAX_DEPTH)
+_SHALLOW = 64
+
+
+class _Deep(Exception):
+    """The object nests deeper than _SHALLOW (internal)."""
+
 
 def _need(buf, pos: int, n: int) -> None:
     if pos + n > len(buf):
         raise _OutOfData
 
 
-def _decode(buf, pos: int, depth: int):
+def _check_len(is_map: bool, n: int) -> None:
+    limit = MAX_BUFFER_SIZE // 2 if is_map else MAX_BUFFER_SIZE
+    if n > limit:
+        raise ValueError(f"{n} exceeds max_{'map' if is_map else 'array'}"
+                         f"_len({limit})")
+
+
+def _check_key(key) -> None:
+    if type(key) not in (str, bytes):
+        raise ValueError(f"{type(key).__name__} is not allowed for map key "
+                         "when strict_map_key=True")
+
+
+# ``strict`` below: None decodes as ``unpackb`` (no limits), False as an
+# Unpacker with ``strict_map_key=False`` (length limits), True as the
+# wheel's default Unpacker (length limits, str / bytes map keys only).
+def _decode(buf, pos: int, depth: int, raw: bool, strict):
     """One object at ``pos`` → (object, next position)."""
-    if depth < 0:
-        raise ValueError("recursion limit exceeded")
     _need(buf, pos, 1)
     c = buf[pos]
     pos += 1
@@ -239,11 +294,11 @@ def _decode(buf, pos: int, depth: int):
     if c >= 0xE0:
         return c - 0x100, pos
     if 0xA0 <= c <= 0xBF:
-        return _str(buf, pos, c & 0x1F)
+        return _str(buf, pos, c & 0x1F, raw)
     if 0x90 <= c <= 0x9F:
-        return _array(buf, pos, c & 0x0F, depth)
+        return _array(buf, pos, c & 0x0F, depth, raw, strict)
     if 0x80 <= c <= 0x8F:
-        return _map(buf, pos, c & 0x0F, depth)
+        return _map(buf, pos, c & 0x0F, depth, raw, strict)
     if c == 0xC0:
         return None, pos
     if c == 0xC2:
@@ -266,11 +321,11 @@ def _decode(buf, pos: int, depth: int):
             _need(buf, pos, n)
             return bytes(buf[pos:pos + n]), pos + n
         if kind == "str":
-            return _str(buf, pos, n)
+            return _str(buf, pos, n, raw)
         if kind == "array":
-            return _array(buf, pos, n, depth)
+            return _array(buf, pos, n, depth, raw, strict)
         if kind == "map":
-            return _map(buf, pos, n, depth)
+            return _map(buf, pos, n, depth, raw, strict)
         return _ext(buf, pos, n)
     n = _FIXEXT.get(c)
     if n is not None:
@@ -278,9 +333,10 @@ def _decode(buf, pos: int, depth: int):
     raise FormatError(f"unknown msgpack type byte 0x{c:02x}")
 
 
-def _str(buf, pos: int, n: int):
+def _str(buf, pos: int, n: int, raw: bool):
     _need(buf, pos, n)
-    return bytes(buf[pos:pos + n]).decode("utf-8"), pos + n
+    b = bytes(buf[pos:pos + n])
+    return (b if raw else b.decode("utf-8")), pos + n
 
 
 def _ext(buf, pos: int, n: int):
@@ -289,21 +345,95 @@ def _ext(buf, pos: int, n: int):
         pos + 1 + n
 
 
-def _array(buf, pos: int, n: int, depth: int):
+def _array(buf, pos: int, n: int, depth: int, raw: bool, strict):
+    if strict is not None:
+        _check_len(False, n)
+    if depth >= _SHALLOW:
+        raise _Deep
     out = []
     for _ in range(n):
-        v, pos = _decode(buf, pos, depth - 1)
+        v, pos = _decode(buf, pos, depth + 1, raw, strict)
         out.append(v)
     return out, pos
 
 
-def _map(buf, pos: int, n: int, depth: int):
+def _map(buf, pos: int, n: int, depth: int, raw: bool, strict):
+    if strict is not None:
+        _check_len(True, n)
+    if depth >= _SHALLOW:
+        raise _Deep
     out = {}
     for _ in range(n):
-        k, pos = _decode(buf, pos, depth - 1)
-        v, pos = _decode(buf, pos, depth - 1)
+        k, pos = _decode(buf, pos, depth + 1, raw, strict)
+        v, pos = _decode(buf, pos, depth + 1, raw, strict)
+        if strict:
+            _check_key(k)
         out[k] = v
     return out, pos
+
+
+def _header(buf, pos: int):
+    """(is_map, entries, next position) of the container header at
+    ``pos``, else None."""
+    c = buf[pos]
+    if 0x90 <= c <= 0x9F:
+        return False, c & 0x0F, pos + 1
+    if 0x80 <= c <= 0x8F:
+        return True, c & 0x0F, pos + 1
+    if 0xDC <= c <= 0xDF:
+        size = 2 if c in (0xDC, 0xDE) else 4
+        _need(buf, pos + 1, size)
+        n = (_u16 if size == 2 else _u32)(buf, pos + 1)[0]
+        return c >= 0xDE, n, pos + 1 + size
+    return None
+
+
+def _decode_deep(buf, pos: int, raw: bool, strict):
+    """``_decode`` on an explicit stack, at most MAX_DEPTH containers
+    deep: the same objects and the same errors, in the same order."""
+    stack = []                 # [container, entries left, pending key]
+    while True:
+        _need(buf, pos, 1)
+        head = _header(buf, pos)
+        if head is None:
+            obj, pos = _decode(buf, pos, 0, raw, strict)
+        else:
+            is_map, n, pos = head
+            if strict is not None:
+                _check_len(is_map, n)
+            if len(stack) >= MAX_DEPTH:
+                raise StackError("msgpack: nesting deeper than "
+                                 f"{MAX_DEPTH} containers")
+            if n:
+                stack.append([{} if is_map else [], n, _NO_KEY])
+                continue
+            obj = {} if is_map else []
+        while stack:
+            top = stack[-1]
+            if type(top[0]) is dict:
+                key = top[2]
+                if key is _NO_KEY:          # obj is a key: read its value
+                    top[2] = obj
+                    break
+                if strict:
+                    _check_key(key)
+                top[0][key] = obj
+                top[2] = _NO_KEY
+            else:
+                top[0].append(obj)
+            top[1] -= 1
+            if top[1]:
+                break
+            obj = stack.pop()[0]
+        else:
+            return obj, pos
+
+
+def _decode_any(buf, pos: int, raw: bool = False, strict=None):
+    try:
+        return _decode(buf, pos, 0, raw, strict)
+    except _Deep:
+        return _decode_deep(buf, pos, raw, strict)
 
 
 def unpackb(data) -> Any:
@@ -311,7 +441,7 @@ def unpackb(data) -> Any:
     ``msgpack.unpackb(data, raw=False, strict_map_key=False)``."""
     buf = bytes(data)
     try:
-        obj, pos = _decode(buf, 0, 1023)
+        obj, pos = _decode_any(buf, 0)
     except _OutOfData:
         raise ValueError("Unpack failed: incomplete input") from None
     if pos != len(buf):
@@ -319,15 +449,61 @@ def unpackb(data) -> Any:
     return obj
 
 
+class Unpacker:
+    """An incremental decoder, as the wheel's fed
+    ``msgpack.Unpacker(raw=...)``: ``feed(bytes)`` appends input and
+    iteration yields every complete object, keeping a partial tail until
+    the next ``feed``.  ``raw=True`` returns str-typed data as bytes.
+
+    The rest is the wheel's defaults: map keys must be str or bytes
+    (``strict_map_key=True``); ``feed`` raises :class:`BufferFull` when
+    the bytes not yet consumed would pass MAX_BUFFER_SIZE; an array
+    header may declare at most MAX_BUFFER_SIZE entries and a map header
+    half as many, else ValueError ("N exceeds max_array_len(L)").
+    Decode errors are the wheel's types (:class:`FormatError`,
+    :class:`StackError`, UnicodeDecodeError, TypeError for an unhashable
+    key); an object that raised is not consumed, so iterating again
+    raises again.  ``unpack()`` returns the next object or raises
+    :class:`OutOfData`."""
+
+    def __init__(self, raw: bool = False):
+        self._raw = bool(raw)
+        self._strict_map_key = True
+        self._buf = bytearray()
+        self._pos = 0
+
+    def feed(self, next_bytes) -> None:
+        view = memoryview(next_bytes)
+        if len(self._buf) - self._pos + view.nbytes > MAX_BUFFER_SIZE:
+            raise BufferFull
+        if self._pos:
+            del self._buf[:self._pos]
+            self._pos = 0
+        self._buf += view
+
+    def unpack(self) -> Any:
+        try:
+            obj, self._pos = _decode_any(self._buf, self._pos, self._raw,
+                                         self._strict_map_key)
+        except _OutOfData:
+            raise OutOfData("No more data to unpack.") from None
+        return obj
+
+    def __iter__(self) -> "Unpacker":
+        return self
+
+    def __next__(self) -> Any:
+        try:
+            return self.unpack()
+        except OutOfData:
+            raise StopIteration from None
+
+
 def unpack_stream(data) -> Iterator[Any]:
     """Iterate over concatenated objects, as a fed
     ``msgpack.Unpacker(raw=False, strict_map_key=False)``: an object
     cut off by the end of the input ends the iteration silently."""
-    buf = bytes(data)
-    pos = 0
-    while pos < len(buf):
-        try:
-            obj, pos = _decode(buf, pos, 1023)
-        except _OutOfData:
-            return
-        yield obj
+    up = Unpacker()
+    up._strict_map_key = False
+    up.feed(data)
+    return up

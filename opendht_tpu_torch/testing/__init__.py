@@ -22,10 +22,15 @@ its command line):
 - The assemblers: ``trace_assembler`` (one operation's span tree),
   ``timeline_assembler`` (the cluster's metrics history) and
   ``wiremap_assembler`` (the cluster's per-peer link graph).
+- The cluster tools (↔ the reference's python/tools): ``dhtcluster``
+  (``NodeCluster``, its REPL), ``subproc_cluster`` (a whole cluster in a
+  child process, driven over msgpack frames on its stdin / stdout),
+  ``netns_net`` (clusters in Linux network namespaces), ``scanner``
+  (the keyspace crawl), ``http_server`` (the HTTP control front) and
+  ``network_monitor`` (the put→listen probe).
 
-The JAX package's cluster tools (``dhtcluster``, ``subproc_cluster``,
-``netns_net``, ``scanner``, ``http_server``, ``network_monitor``) and
-its other smokes are not ported yet (ROADMAP A.3 and A.5).
+Each submodule resolves as an attribute on first use.  The JAX
+package's other smokes are not ported yet (ROADMAP A.5).
 """
 
 from .virtual_net import VirtualNet
@@ -44,8 +49,6 @@ _LAZY_EXPORTS = {
 #: the JAX package's ``testing`` modules the port does not carry yet,
 #: each with the ROADMAP item that takes it
 _NOT_PORTED = {
-    **dict.fromkeys(("dhtcluster", "subproc_cluster", "netns_net",
-                     "scanner", "http_server", "network_monitor"), "A.3"),
     **dict.fromkeys(("cache_smoke", "chaos_smoke", "health_smoke",
                      "history_smoke", "ingest_smoke", "keyspace_smoke",
                      "ledger_smoke", "listener_smoke", "peer_smoke",
@@ -59,10 +62,15 @@ def __getattr__(name):
         raise AttributeError(
             f"opendht_tpu_torch.testing.{name} (testing/{name}.py) is not "
             f"ported yet (ROADMAP {_NOT_PORTED[name]})")
+    import importlib
+    import importlib.util
     mod = _LAZY_EXPORTS.get(name)
     if mod is None:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    import importlib
+        if name.startswith("_") or importlib.util.find_spec(
+                f"{__name__}.{name}") is None:
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}")
+        return importlib.import_module(f".{name}", __name__)
     value = getattr(importlib.import_module(mod, __name__), name)
     globals()[name] = value
     return value

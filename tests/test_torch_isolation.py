@@ -35,7 +35,9 @@ from opendht_tpu_torch import bench, chaos, profiling, telemetry
 from opendht_tpu_torch.ops import swarm
 from opendht_tpu_torch.parallel import make_mesh
 from opendht_tpu_torch.testing import (DhtNetwork, VirtualNet, benchmark,
-                                       pingpong, telemetry_smoke)
+                                       dhtcluster, http_server,
+                                       network_monitor, pingpong, scanner,
+                                       subproc_cluster, telemetry_smoke)
 from opendht_tpu_torch.tools.common import make_arg_parser, setup_node
 from opendht_tpu_torch.waterfall import OpenBoundTracker
 
@@ -79,7 +81,10 @@ def test_importing_the_port_loads_no_jax():
                 "testing.telemetry_smoke", "testing.health_monitor",
                 "testing.timeline_assembler", "testing.wiremap_assembler",
                 "testing.network", "testing.scenarios", "testing.benchmark",
-                "testing.pingpong", "tools.dhtmon"):
+                "testing.pingpong", "tools.dhtmon", "testing.dhtcluster",
+                "testing.subproc_cluster", "testing.netns_net",
+                "testing.scanner", "testing.http_server",
+                "testing.network_monitor"):
         assert f"opendht_tpu_torch.{mod}" in want
 
 
@@ -413,6 +418,15 @@ def _entry_points():
                                                   "4"]),
         "pingpong.main": lambda: pingpong.main(["-n", "1"]),
         "telemetry_smoke.main": lambda: telemetry_smoke.main([]),
+        "NodeCluster": lambda: dhtcluster.NodeCluster(),
+        "ClusterSubProcess": lambda: subproc_cluster.ClusterSubProcess(1),
+        "network_monitor.Monitor": lambda: network_monitor.Monitor(
+            None, 1, 1.0),
+        "dhtcluster.main": lambda: dhtcluster.main(["-n", "1", "-s"]),
+        "scanner.main": lambda: scanner.main(["--local", "1"]),
+        "http_server.main": lambda: http_server.main(["-hp", "0"]),
+        "network_monitor.main": lambda: network_monitor.main(
+            ["--local", "--rounds", "1"]),
     }
 
 
@@ -438,6 +452,42 @@ def test_entry_points_run_on_the_cpu_when_asked():
     assert stale.device.type == "cpu"
     t.bulk_load(ids, now=0.0)
     assert t.maintenance_sweep(1.0)[0].size == len(t.stale_buckets(1.0))
+
+
+_CHILD_FRAMES = """
+import msgpack, sys
+sys.stdout.buffer.write(b"".join(msgpack.packb(r, use_bin_type=True) for r in
+                                 ({"op": "launch", "n": 1}, {"op": "quit"})))
+"""
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_cluster_child_loads_no_jax_module(device):
+    """A subprocess-cluster child, card-default (which here answers
+    "no CUDA device") or on the CPU (which starts a node), run under
+    ``-X importtime``: no JAX, ``opendht_tpu`` or ``msgpack`` module."""
+    frames = subprocess.run([sys.executable, "-c", _CHILD_FRAMES],
+                            capture_output=True, timeout=60,
+                            check=True).stdout
+    argv = subproc_cluster.child_argv(device)
+    out = subprocess.run([argv[0], "-X", "importtime", *argv[1:]],
+                         input=frames, capture_output=True, timeout=120,
+                         env=subproc_cluster.child_env(), check=True)
+    from opendht_tpu_torch import _msgpack
+    up = _msgpack.Unpacker(raw=True)
+    up.feed(out.stdout)
+    launch, quit_ = list(up)
+    assert quit_ == {b"ok": True}
+    if device == "cuda":
+        assert not launch[b"ok"] and b"no CUDA device" in launch[b"error"]
+    else:
+        assert launch[b"ok"] and len(launch[b"ports"]) == 1
+    mods = [l.split("|")[-1].strip() for l in
+            out.stderr.decode().splitlines() if l.startswith("import time:")]
+    assert "torch" in mods
+    assert "opendht_tpu_torch.testing.dhtcluster" in mods
+    assert not [m for m in mods if m.split(".")[0] in
+                ("jax", "jaxlib", "opendht_tpu", "msgpack")]
 
 
 def _chip_smoke(*args, records=None):
@@ -467,6 +517,10 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
                       "--scale-q", "256", "--swarm-n", "2048",
                       "--proxy-keys", "64", "--pht-entries", "17",
                       "--monitor-runners", "8", "--monitor-keys", "128",
+                      # every phase but cluster, which
+                      # tests/test_torch_cluster_phase.py rehearses
+                      "--phases", "search,maintenance,churn,serve,runner,"
+                      "proxy,monitor,planes,scale,ledger,swarm,bench",
                       records=tmp_path)
     assert out.returncode == 3, out.stderr[-2000:]
     lines = [json.loads(l) for l in out.stdout.splitlines()

@@ -173,3 +173,180 @@ def test_hypothesis_roundtrip_and_bytes(obj):
     assert M.packb(obj) == raw
     assert M.unpackb(raw) == ref_unpack(raw)
     assert port_utils.unpack_msg(port_utils.pack_msg(obj)) == ref_unpack(raw)
+
+
+# ------------------------------------------------- the incremental Unpacker
+# the frames of the subprocess cluster's RPC channel (testing/
+# subproc_cluster.py), both ways, for every op
+_KEY = bytes(range(20))
+RPC_FRAMES = [
+    {"op": "launch", "n": 8},
+    {"ok": True, "ports": [40001, 40002, 65535], "ids": [_KEY, _KEY[::-1]]},
+    {"op": "resize", "n": 0}, {"ok": True, "n": 0},
+    {"op": "bootstrap", "host": "127.0.0.1", "port": 4222}, {"ok": True},
+    {"op": "put", "key": _KEY, "value": b"v" * 300},
+    {"ok": True, "stored": True},
+    {"op": "get", "key": _KEY},
+    {"ok": True, "values": [b"a", b"b" * 70000, b""]},
+    {"op": "ids"}, {"ok": True, "ids": [_KEY] * 32},
+    {"op": "stats"}, {"ok": True, "n": 8, "msgs": 2**40},
+    {"op": "quit"},
+    {"ok": False, "error": "Traceback ...\nRuntimeError: é no CUDA"},
+]
+
+
+def _wheel_objects(data: bytes, cuts, **kw) -> list:
+    up = msgpack.Unpacker(**kw)
+    return _fed(up, data, cuts)
+
+
+def _fed(up, data: bytes, cuts) -> list:
+    """Feed ``data`` in the pieces ``cuts`` makes, iterating after each;
+    the objects, then the first error's type and, for a plain ValueError,
+    TypeError or UnicodeDecodeError, its text (the wheel's FormatError
+    and StackError carry none; the port's say what they found)."""
+    out, last = [], 0
+    for c in list(cuts) + [len(data)]:
+        up.feed(data[last:c])
+        last = c
+        try:
+            out.extend(up)
+        except Exception as e:              # noqa: BLE001 - compared
+            text = str(e) if type(e) in (ValueError, TypeError,
+                                         UnicodeDecodeError) else ""
+            return out + [("error", type(e).__name__, text)]
+    return out
+
+
+def _port_objects(data: bytes, cuts, **kw) -> list:
+    """The port's Unpacker takes only ``raw=``.  The wheel's other knobs
+    a case sets are the port's module limit (``max_buffer_size``) and
+    ``unpack_stream``, whose Unpacker has ``strict_map_key=False``."""
+    size = kw.pop("max_buffer_size", M.MAX_BUFFER_SIZE)
+    strict = kw.pop("strict_map_key", True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(M, "MAX_BUFFER_SIZE", size)
+        up = M.Unpacker(**kw) if strict else M.unpack_stream(b"")
+        return _fed(up, data, cuts)
+
+
+def test_rpc_frames_are_the_wheels_bytes():
+    for f in RPC_FRAMES:
+        assert M.packb(f) == msgpack.packb(f, use_bin_type=True), f
+
+
+@pytest.mark.parametrize("raw", [True, False])
+def test_rpc_stream_at_every_split_point(raw):
+    data = b"".join(M.packb(f) for f in RPC_FRAMES
+                    if len(M.packb(f)) < 4096)
+    want = _wheel_objects(data, [], raw=raw)
+    assert len(want) == len(RPC_FRAMES) - 1
+    for cut in range(len(data) + 1):
+        assert _port_objects(data, [cut], raw=raw) == want, cut
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("raw", [True, False])
+def test_seeded_objects_at_random_chunkings(seed, raw):
+    import random
+    rng = random.Random(seed)
+
+    def obj(depth=0):
+        kind = rng.randrange(10 if depth < 4 else 6)
+        if kind == 0:
+            return rng.choice([None, True, False])
+        if kind == 1:
+            return rng.randrange(-2**63, 2**64)
+        if kind == 2:
+            return rng.random() * 10 ** rng.randrange(-5, 300)
+        if kind == 3:
+            return "".join(chr(rng.randrange(32, 0x3000))
+                           for _ in range(rng.choice([0, 3, 31, 32, 300])))
+        if kind == 4:
+            return rng.randbytes(rng.choice([0, 1, 255, 256, 70000]))
+        if kind == 5:
+            return rng.randrange(-32, 128)
+        if kind in (6, 7):
+            return [obj(depth + 1) for _ in range(rng.choice([0, 2, 16]))]
+        return {rng.choice(["k%d" % i, b"b%d" % i]): obj(depth + 1)
+                for i in range(rng.choice([0, 3, 16]))}
+    objs = [obj() for _ in range(40)]
+    data = b"".join(M.packb(o) for o in objs)
+    assert data == b"".join(ref_pack(o) for o in objs)
+    for trial in range(4):
+        cuts = sorted(rng.randrange(len(data) + 1)
+                      for _ in range(rng.choice([1, 7, 60])))
+        want = _wheel_objects(data, cuts, raw=raw)
+        assert len(want) == len(objs)
+        assert _port_objects(data, cuts, raw=raw) == want
+
+
+UNPACKER_CASES = [
+    (b"\xc1\x01", {}),                                  # never-used byte
+    (b"\x01\x91" + b"\x91" * 1024 + b"\x01", {}),       # 1,025 deep
+    (b"\x91" * 1023 + b"\x01\x02", {}),                  # 1,024 deep: fine
+    (b"\x91" * 1024 + b"\x90", {}),                      # empty, too deep
+    (b"\xa2\xff\xfe\x01", {}),                           # bad UTF-8
+    (b"\xa2\xff\xfe\x01", {"raw": True}),                # ... is raw
+    (b"\x81\x01\x02", {}),                               # int key, strict
+    (b"\x81\x01\x02", {"strict_map_key": False}),
+    (b"\x81\xc0\x01", {}),                               # None key
+    (b"\x81\x91\x01\x02", {"strict_map_key": False}),    # unhashable key
+    (b"\x9b\x01", {"max_buffer_size": 10}),              # 11 > 10
+    (b"\x01\xdc\x00\x0b", {"max_buffer_size": 10}),
+    (b"\x85\x01", {"max_buffer_size": 10}),              # 5: fits
+    (b"\x86\x01", {"max_buffer_size": 10}),              # 6 > 10 // 2
+    (b"\xde\x00\x06", {"max_buffer_size": 10}),
+    (b"\xc4\x0aabcdefgh", {"max_buffer_size": 10}),      # never whole
+    (b"\xdd\xff\xff\xff\xff", {}),                        # 2**32 - 1
+    (b"\xc7\x00\x05\xd5\x02ab", {}),                     # ext types
+    # past the recursive decoder's depth: the stack decoder's checks
+    (b"\x91" * 100 + b"\x81\x01\x02", {}),                # int key, strict
+    (b"\x91" * 100 + b"\x81\x91\x01\x02", {"strict_map_key": False}),
+    (b"\x91" * 100 + b"\xdd\xff\xff\xff\xff", {}),        # 2**32 - 1
+    (b"\x91" * 100 + b"\xa2\xff\xfe", {}),                # bad UTF-8
+]
+
+
+@pytest.mark.parametrize("data,kw", UNPACKER_CASES,
+                         ids=[f"{d[:4].hex()}-{len(d)}B-{'-'.join(kw)}"
+                              for d, kw in UNPACKER_CASES])
+def test_unpacker_errors_and_limits_match_the_wheel(data, kw):
+    want = _wheel_objects(data, [], **kw)
+    assert _port_objects(data, [], **kw) == want
+    for cut in range(len(data) + 1):
+        assert _port_objects(data, [cut], **kw) == \
+            _wheel_objects(data, [cut], **kw), cut
+
+
+def test_unpacker_buffer_limit_and_unpack(monkeypatch):
+    monkeypatch.setattr(M, "MAX_BUFFER_SIZE", 4)
+    for up, mod in ((msgpack.Unpacker(max_buffer_size=4), msgpack),
+                    (M.Unpacker(), M)):
+        up.feed(b"\x01\x02\x03")
+        assert up.unpack() == 1
+        up.feed(b"\x04\x05")                 # 2 unread + 2 new: fits
+        assert list(up) == [2, 3, 4, 5]
+        with pytest.raises(mod.OutOfData):
+            up.unpack()
+        with pytest.raises(mod.BufferFull):
+            up.feed(b"\x00" * 5)
+    assert issubclass(M.StackError, ValueError)
+    assert issubclass(M.BufferFull, M.UnpackException)
+
+
+def test_unpackb_decodes_what_the_wheel_decodes_at_depth():
+    """Past the recursive decoder's depth an explicit stack takes over:
+    every nesting depth the wheel takes decodes, and one deeper fails as
+    the wheel fails."""
+    for depth in (63, 64, 65, 500, 1024):
+        raw = b"\x91" * depth + b"\x01"
+        assert M.unpackb(raw) == ref_unpack(raw)
+        mixed = b"\x92\x81\xa1k" * (depth // 2) + b"\xc0" + \
+            b"\x01" * (depth // 2)
+        assert M.unpackb(mixed) == ref_unpack(mixed)
+    raw = b"\x91" * 1025 + b"\x01"
+    with pytest.raises(msgpack.StackError):
+        ref_unpack(raw)
+    with pytest.raises(M.StackError):
+        M.unpackb(raw)

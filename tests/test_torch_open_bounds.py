@@ -285,10 +285,17 @@ def test_open_bound_tracker_ticks_on_scheduler(tmp_path, monkeypatch):
 SUB = ["maintenance_sweep", "wave_builder_lookup"]
 
 
-def test_runner_metrics_and_profile_have_the_jax_runners_keys():
+def test_runner_metrics_and_profile_have_the_jax_runners_keys(monkeypatch):
     from opendht_tpu.runtime.runner import DhtRunner as JRunner
     from opendht_tpu.runtime.runner import RunnerConfig as JCfg
     from opendht_tpu_torch.runtime.runner import DhtRunner, RunnerConfig
+    # both runners scrape fresh registries: an earlier test in this
+    # process may have exported a ledger's dht_kernel_* gauges into the
+    # process-global ones, which no ledger.clear() takes back out
+    for tel in (telemetry, jtel):
+        reg = tel.MetricsRegistry()
+        monkeypatch.setattr(tel, "_global_registry", reg, raising=False)
+        monkeypatch.setattr(tel, "get_registry", lambda r=reg: r)
     led, jled = profiling.get_ledger(), JP.get_ledger()
     led.clear()
     jled.clear()
