@@ -211,7 +211,8 @@ Phases, one JSON line each:
              unanswered at a time; 20 virtual s later --planes-gets
              (2,048; cut from 4,096, PERF.md §4) Dht.get over
              those keys drawn from a seeded Zipf(0.99) (YCSB workload
-             C), one per virtual ms, then the scheduler pumped through
+             C), spread over 4 virtual s (one per virtual ms for
+             more than 4,000), then the scheduler pumped through
              three observatory ticks (2 s).  Checks: cache hits > 0;
              every get's values equal the same stream on the same node
              with the cache disabled; the sketch and histogram equal a
@@ -361,6 +362,36 @@ Phases, one JSON line each:
              made, NetnsClusterNet with two namespaced clusters of 4 on
              the card, a put in one got from the other ("unavailable"
              otherwise).  Every child exits, no thread is left.
+21. smokes — (only when --phases names it: a call of its own, not part
+             of the full run, PERF.md §4) the thirteen smokes of
+             opendht_tpu_torch/testing (ledger, health, history,
+             waterfall, peer, keyspace, cache, listener, ingest,
+             pipeline, pipeline_util, reshard and chaos; --smokes picks
+             some) on the card, in a process of its own, which builds
+             the native engine and measures one CUDA context's MiB
+             (nvidia-smi before and after it makes its own).  Two
+             passes, each a fresh child process a smoke (the metrics
+             registry and the tracer are process-wide), SMOKES_PARALLEL
+             at a time, the longest first.  (a) plain: ``python -m
+             opendht_tpu_torch.testing.<name>``, as a user runs it;
+             per smoke its exit code, seconds, last line (the smoke's
+             OK line) and the JAX libraries its /proc/<pid>/maps showed
+             while it ran.  (b) profiled: the smoke's main() under
+             torch.profiler's CUDA activity (smoke_child; a smoke of
+             SMOKES_SELF_PROFILED, which profiles itself, reports its
+             ledger's device events of one call of each spec); per
+             smoke its exit code, device kernels, copies and ms, the
+             select kernels' launches, the allocator's peak, the JAX
+             libraries and modules loaded, and the port's ERROR,
+             dark-plane and delayed-packet records.  A smoke's card MiB
+             is the context's plus its allocator peak.  Fails on a
+             child of either pass that exits nonzero or whose last line
+             is not the smoke's, a traceback in a plain child's output,
+             an ERROR record, a plane gone dark (DARK_MARKS) or JAX
+             loaded; a smoke whose nodes launched no kernel is named,
+             not failed (a 3-node table resolves on the host).  Each
+             child's output is kept in smokes/<name>.<pass>.out and
+             .err in the smoke-record directory.
 
 The smoke-record directory is $OPENDHT_TPU_SMOKE_RECORD_DIR, else
 build/smoke_records beside this script: ``python -m
@@ -371,7 +402,9 @@ failure raises (nonzero exit, no ok line).  Without a card it exits
 nonzero before any result; ``--cpu`` rehearses every phase on the host
 with the plain versions and also ends without the ok line, as does a
 partial run (``--phases`` with a comma-separated list of late phases,
-e.g. ``--phases ledger,swarm``: phases 1-7, then only those).
+e.g. ``--phases ledger,swarm``: phases 1-7, then only those).  The
+full run (``--phases all``, the default) runs every late phase but
+those of CALL_OF_ITS_OWN (smokes), which run only when named.
 """
 
 from __future__ import annotations
@@ -408,7 +441,10 @@ RUNNER_VALUES = 64
 # the phases after main, in their order; --phases picks some of them
 LATE_PHASES = ("search", "maintenance", "churn", "serve", "runner",
                "proxy", "monitor", "cluster", "planes", "scale", "ledger",
-               "swarm", "bench")
+               "swarm", "bench", "smokes")
+# late phases that the full run leaves out: each runs only when --phases
+# names it, in a call of its own (the full run's time, PERF.md §4)
+CALL_OF_ITS_OWN = ("smokes",)
 
 
 def emit(obj) -> None:
@@ -1504,6 +1540,11 @@ def client_burst(ceng, peer, csock, targets: list, lo: int, hi: int,
     nxt = lo
     while len(answers) < hi - lo and time.monotonic() < deadline \
             and not expired:
+        # a request is stamped with the engine's clock, which only a
+        # run() moves: left at the previous burst's end, a request sent
+        # after a pause looks a second overdue at the next run() and is
+        # sent twice, doubling the node's first pump
+        ceng.scheduler.sync_time()
         while nxt < hi and nxt - lo - len(answers) < SERVE_WINDOW:
             i = nxt
             nxt += 1
@@ -2533,13 +2574,14 @@ def jax_modules(mods) -> list:
                    if m.split(".")[0] in ("jax", "jaxlib", "opendht_tpu")})
 
 
-def phase_in_child(name: str, args, card) -> int:
-    """Run the late phase ``name`` (proxy, monitor, cluster) in a process
-    of its own, as a server runs: a fresh interpreter, heap and metrics
-    registry, none of what the earlier phases left (their nodes'
+def phase_in_child(name: str, args, card):
+    """Run the late phase ``name`` (proxy, monitor, cluster, smokes) in a
+    process of its own, as a server runs: a fresh interpreter, heap and
+    metrics registry, none of what the earlier phases left (their nodes'
     per-peer series alone are ~22,000, and each history tick of a node
     walks every series on its thread).  Passes its output lines on;
-    returns its window_select launches."""
+    returns its window_select launches (the smokes phase: both select
+    kernels', by name)."""
     here = str(Path(__file__).resolve().parent)
     code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
             "sys.exit(chip_smoke.phase_child())" % here)
@@ -2563,7 +2605,7 @@ def phase_child() -> int:
     phase's name, the script's arguments and the card record, as JSON."""
     import torch
     phase = {"proxy": proxy_phase, "monitor": monitor_phase,
-             "cluster": cluster_phase}[sys.argv[1]]
+             "cluster": cluster_phase, "smokes": smokes_phase}[sys.argv[1]]
     args = argparse.Namespace(**json.loads(sys.argv[2]))
     card = json.loads(sys.argv[3])
     if args.cpu:
@@ -3519,13 +3561,18 @@ CLUSTER_MONITOR_KEYS = 8
 CLUSTER_MONITOR_ROUNDS = 2
 
 
+def card_used_mib() -> int:
+    """The card's memory in use, MiB, as nvidia-smi reads it."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+
+
 def card_memory() -> dict:
     """The card's memory in use (MiB) and each compute process's, by pid,
     as nvidia-smi lists them (a container may list no pid)."""
-    used = subprocess.run(
-        ["nvidia-smi", "--query-gpu=memory.used",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.split()[0]
+    used = card_used_mib()
     apps = subprocess.run(
         ["nvidia-smi", "--query-compute-apps=pid,used_memory",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -3535,7 +3582,7 @@ def card_memory() -> dict:
         pid, _, mib = line.partition(",")
         if pid.strip().isdigit() and mib.strip().isdigit():
             by_pid[int(pid)] = int(mib)
-    return {"used_mib": int(used), "by_pid": by_pid}
+    return {"used_mib": used, "by_pid": by_pid}
 
 
 def jax_libraries(pid: int) -> list:
@@ -3842,6 +3889,213 @@ def cluster_phase(args, dev, card, sync) -> int:
     require(None not in exited, "every child exited")
     require(not alive, f"every runner and HTTP thread joined: {alive}")
     return launched
+
+
+# The smokes phase's smokes (opendht_tpu_torch/testing/<name>.py), the
+# longest first (their times on the card, PERF.md §5), so that the last
+# to start are short.
+SMOKES = ("peer_smoke", "listener_smoke", "keyspace_smoke", "cache_smoke",
+          "waterfall_smoke", "reshard_smoke", "pipeline_util_smoke",
+          "history_smoke", "health_smoke", "pipeline_smoke", "ingest_smoke",
+          "ledger_smoke", "chaos_smoke")
+# Smoke children at once (PERF.md §4).
+SMOKES_PARALLEL = 6
+# Smokes that run torch.profiler themselves (the cost ledger profiles
+# each spec's calls), which a second session around them would stop.
+SMOKES_SELF_PROFILED = ("ledger_smoke",)
+# A smoke child's limit.
+SMOKE_CHILD_S = 240.0
+
+
+def smoke_child(name: str, cuda: bool) -> int:
+    """The smokes phase's profiled child: the smoke ``name``'s main() on
+    the card (or with --cpu) under torch.profiler's CUDA activity, the
+    port's log records watched.  Prints the smoke's own output, then its
+    record as the last line."""
+    import importlib
+    import traceback
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from opendht_tpu_torch.ops.lex_select import lex_topk_select
+    from opendht_tpu_torch.ops.window_select import window_select
+    if not cuda:
+        torch.set_num_threads(2)      # tiny shapes
+    smoke = importlib.import_module("opendht_tpu_torch.testing." + name)
+    prof = (profile(activities=[ProfilerActivity.CUDA])
+            if cuda and name not in SMOKES_SELF_PROFILED else None)
+    t0 = time.perf_counter()
+    with PortRecords() as records:
+        if prof is not None:
+            prof.__enter__()
+        try:
+            rc = smoke.main([] if cuda else ["--cpu"])
+        except BaseException:
+            traceback.print_exc()
+            rc = 1
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+    smoke_s = time.perf_counter() - t0
+    if prof is not None or not cuda:
+        dev = device_totals(prof, cuda)
+        del dev["top"], dev["stages"]
+    else:
+        # the ledger's own profile: one call of each spec it computed
+        from opendht_tpu_torch import profiling
+        ent = [e for e in profiling.get_ledger().compute(
+            smoke.SMOKE_KERNELS, device="cuda").values() if "error" not in e]
+        dev = {"kernels": sum(e["device_kernels"] or 0 for e in ent),
+               "copies": sum(e["device_copies"] or 0 for e in ent),
+               "device_ms": sum(e["kernel_ms"] or 0.0 for e in ent),
+               "source": "the ledger's profile, one call of each spec"}
+    print(json.dumps({"smoke_child": {
+        "rc": rc, "smoke_s": smoke_s, "device": dev,
+        "launches": {"window_select": window_select.launches,
+                     "lex_topk_select": lex_topk_select.launches},
+        "peak_reserved_mib": (torch.cuda.max_memory_reserved() / 2**20
+                              if cuda else "not measured"),
+        "jax_libraries": jax_libraries(os.getpid()),
+        "jax_modules": jax_modules(sys.modules),
+        "error_records": records.errors[:3],
+        "n_error_records": len(records.errors), "dark": records.dark[:3],
+        "delay_drops": len(records.delay_drops)}}), flush=True)
+    return 0
+
+
+def run_smokes(cmds: dict, parallel: int, logs: Path, tag: str,
+               env: dict) -> dict:
+    """Run each command of ``cmds`` (smoke -> argv), a child process
+    each, at most ``parallel`` at once in their order, each within
+    SMOKE_CHILD_S, its output in ``logs``/<smoke>.<tag>.out and .err.
+    Returns per smoke its exit code ("timeout" past the limit), seconds,
+    output lines and the JAX libraries its maps showed while it ran."""
+    here = Path(__file__).resolve().parent
+    todo, live, done = list(cmds), {}, {}
+    while todo or live:
+        while todo and len(live) < parallel:
+            name = todo.pop(0)
+            out, err = (logs / f"{name}.{tag}{ext}" for ext in (".out",
+                                                              ".err"))
+            with open(out, "w") as o, open(err, "w") as e:
+                proc = subprocess.Popen(cmds[name], stdout=o, stderr=e,
+                                        cwd=here, env=env)
+            live[name] = (proc, time.perf_counter(), set(), out, err)
+        time.sleep(0.5)
+        for name, (proc, t0, jax, out, err) in list(live.items()):
+            if proc.poll() is None:
+                try:
+                    jax.update(jax_libraries(proc.pid))
+                except OSError:             # it has just exited
+                    pass
+                if time.perf_counter() - t0 < SMOKE_CHILD_S:
+                    continue
+                proc.kill()
+            rc = proc.wait()
+            del live[name]
+            done[name] = {
+                "exit": "timeout" if rc == -9 else rc,
+                "wall_s": time.perf_counter() - t0,
+                "stdout": out.read_text().splitlines(),
+                "stderr": err.read_text().splitlines(),
+                "jax_libraries": sorted(jax)}
+    return done
+
+
+def smokes_phase(args, dev, card, sync) -> dict:
+    """The smokes (see the module docstring, phase 21).  Returns both
+    select kernels' launches in the profiled pass's children."""
+    import torch
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    names = args.smokes.split(",")
+    require(set(names) <= set(SMOKES) and names,
+            f"--smokes names smokes of {SMOKES}: {names}")
+    names = [n for n in SMOKES if n in names]
+    logs = Path(os.environ["OPENDHT_TPU_SMOKE_RECORD_DIR"]) / "smokes"
+    logs.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ)
+    context_mib = used0 = "not measured"
+    if cuda:
+        # the native engine, built before any child starts
+        from opendht_tpu_torch.native import available
+        available()
+        used0 = card_used_mib()
+        torch.zeros(1, device=dev)
+        sync()
+        context_mib = card_used_mib() - used0
+    else:
+        env["OMP_NUM_THREADS"] = "2"              # tiny shapes
+    here = str(Path(__file__).resolve().parent)
+    passes = {
+        "plain": {n: [sys.executable, "-m", "opendht_tpu_torch.testing."
+                      + n] + ([] if cuda else ["--cpu"]) for n in names},
+        "profiled": {n: [sys.executable, "-c",
+                         "import sys; sys.path.insert(0, %r); import "
+                         "chip_smoke; sys.exit(chip_smoke.smoke_child(%r, "
+                         "%r))" % (here, n, cuda)] for n in names}}
+    got, pass_s = {}, {}
+    for tag, cmds in passes.items():
+        t0 = time.perf_counter()
+        got[tag] = run_smokes(cmds, SMOKES_PARALLEL, logs, tag, env)
+        pass_s[tag] = time.perf_counter() - t0
+
+    def dark(run):
+        return [ln for ln in run["stdout"] + run["stderr"]
+                if any(m in ln for m in DARK_MARKS)][:3]
+
+    done = []
+    for n in names:
+        plain, prof = got["plain"][n], got["profiled"][n]
+        rec = (json.loads(prof["stdout"].pop())["smoke_child"]
+               if prof["stdout"] and prof["stdout"][-1].startswith(
+                   '{"smoke_child"') else {})
+        d = {"smoke": n,
+             "exit": plain["exit"], "wall_s": plain["wall_s"],
+             "last_line": plain["stdout"][-1] if plain["stdout"] else None,
+             "tracebacks": sum("Traceback" in ln for ln in plain["stderr"]),
+             "delay_drops": sum("dropping packet with high delay" in ln
+                                for ln in plain["stderr"]),
+             "profiled": {"exit": prof["exit"], "wall_s": prof["wall_s"],
+                          "last_line": (prof["stdout"][-1]
+                                        if prof["stdout"] else None),
+                          **rec},
+             "card_mib": (context_mib + rec["peak_reserved_mib"]
+                          if cuda and rec else "not measured"),
+             "jax_libraries": sorted(set(plain["jax_libraries"])
+                                     | set(prof["jax_libraries"])),
+             "dark_lines": dark(plain) + dark(prof)}
+        d["ok"] = all(r["exit"] == 0 and r["last_line"] is not None
+                      and r["last_line"].startswith(n)
+                      for r in (d, d["profiled"])) and rec.get("rc") == 0
+        if not d["ok"]:
+            d["stderr_tail"] = {"plain": plain["stderr"][-12:],
+                                "profiled": prof["stderr"][-12:]}
+        done.append(d)
+    failed = [d["smoke"] for d in done if not d["ok"]]
+    erring = [d["smoke"] for d in done if d["tracebacks"]
+              or d["profiled"].get("n_error_records")]
+    darkened = [d["smoke"] for d in done
+                if d["dark_lines"] or d["profiled"].get("dark")]
+    jaxed = [d["smoke"] for d in done if d["jax_libraries"]
+             or d["profiled"].get("jax_modules")]
+    quiet = [d["smoke"] for d in done if cuda and "device" in d["profiled"]
+             and not d["profiled"]["device"]["kernels"]]
+    launches = {k: sum(d["profiled"].get("launches", {}).get(k, 0)
+                       for d in done)
+                for k in ("window_select", "lex_topk_select")}
+    emit({"phase": "smokes", **card, "smokes_n": len(done),
+          "parallel": SMOKES_PARALLEL, "pass_s": pass_s, "context_mib": context_mib,
+          "card_used_mib": ({"before": used0, "after": card_used_mib()}
+                            if cuda else "not measured"),
+          "smokes": done, "failed": failed, "with_error_records": erring,
+          "dark": darkened, "jax_loaded": jaxed,
+          "no_device_kernels": quiet, "launches": launches,
+          "logs": str(logs), "phase_s": time.perf_counter() - t_phase})
+    require(not failed, f"every smoke passed both passes: {failed} did not")
+    require(not erring, f"no traceback or ERROR record: {erring}")
+    require(not darkened, f"no plane went dark: {darkened}")
+    require(not jaxed, f"no smoke loaded JAX: {jaxed}")
+    return launches
 
 
 # Requests the planes phase's put client keeps unanswered (the node
@@ -5145,10 +5399,14 @@ def main(argv=None) -> int:
                     help="queries of the scale phase's lookups")
     ap.add_argument("--swarm-n", type=int, default=50_000,
                     help="nodes of the swarm phase's storm arc")
+    ap.add_argument("--smokes", default=",".join(SMOKES),
+                    help="comma-separated smokes of the smokes phase "
+                         "(default: all " + str(len(SMOKES)) + ")")
     ap.add_argument("--phases", default="all",
                     help="'all', or a comma-separated list of late phases "
                          "(" + ", ".join(LATE_PHASES) + ") to run after "
-                         "the device, build, parity and main phases")
+                         "the device, build, parity and main phases; "
+                         "'all' leaves out " + ", ".join(CALL_OF_ITS_OWN))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on the host with the plain versions "
@@ -5159,7 +5417,8 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(wanted - set(LATE_PHASES))}")
 
     def late(name: str) -> bool:
-        return "all" in wanted or name in wanted
+        return name in wanted or ("all" in wanted
+                                  and name not in CALL_OF_ITS_OWN)
 
     import torch
     # -- 1. device ---------------------------------------------------------
@@ -5498,6 +5757,10 @@ def main(argv=None) -> int:
         swarm_phase(args, dev, card, sync)
     if late("bench"):
         bench_phase(args, dev, card)
+    if late("smokes"):
+        # the smoke children's select kernel launches join the count
+        for name, n in phase_in_child("smokes", args, card).items():
+            launches[name] += n
 
     kernels = []
     for name, src_line in (("window_select",

@@ -30,7 +30,8 @@ the card it needs t CUDA cards (with fewer it logs a warning and serves
 the identical unsharded path, as the JAX node does); a node on the CPU
 runs up to :data:`CPU_VIRTUAL_DEVICES` virtual shards there, the JAX
 tests' 8 host devices.  ``warmup`` lets a failure raise (see its
-docstring).  Everything else is the JAX module's behaviour, unchanged.
+docstring) and, on the card, runs :func:`warm_device`.  Everything else
+is the JAX module's behaviour, unchanged.
 """
 
 from __future__ import annotations
@@ -75,6 +76,56 @@ from .live_search import (
 from .wave_builder import WaveBuilder
 
 log = logging.getLogger("opendht_tpu_torch.dht")
+
+
+def warm_device(config: Config, device) -> None:
+    """Run each device program of a node's periodic work once, on
+    throwaway tensors of the shapes ``config`` gives a node: the
+    keyspace sketch's update, query and decay, the hot cache's probe,
+    the listener table's match and the routing table's maintenance
+    sweep, each read back.  On the card this makes the process's CUDA
+    context and loads the programs' kernels on the caller's thread.
+    Left to a node's first wave or maintenance pass, that work held its
+    protocol thread for seconds on a busy host, past the runner's 0.5 s
+    queue limit, and the packets queued meanwhile were dropped.
+    ``Dht.warmup`` runs it for a node on the card, and ``DhtRunner.run``
+    before it starts the node's scheduler clock, so that the wait is
+    not counted as its jobs' lag.  No node's state is touched.  The JAX
+    node has no such step: its programs compile at first use."""
+    import torch
+    from ..hotcache import HotCacheConfig
+    from ..keyspace import KeyspaceConfig
+    from ..listeners import ListenerTableConfig
+    from ..ops import radix
+    from ..ops import sketch as sk
+    from ..ops.cache_probe import cache_probe
+    from ..ops.listener_match import listener_match
+    dev = resolve_device(device)
+    ids = IK.ids_from_hashes([InfoHash.get("warm-device")])
+    ks = getattr(config, "keyspace", None) or KeyspaceConfig()
+    if ks.enabled:
+        sketch, hist = sk.sketch_init(ks.depth, ks.width, device=dev)
+        sk.sketch_update(sketch, hist, ids)
+        sk.sketch_query(sketch, ids).cpu()
+        hist.cpu()
+        sk.sketch_decay(sketch, hist, ks.decay)
+    caps = ((getattr(config, "cache", None) or HotCacheConfig()).capacity,
+            (getattr(config, "listeners", None)
+             or ListenerTableConfig()).capacity)
+    for rows, probe in zip(caps, (cache_probe, listener_match)):
+        rows = max(1, int(rows))
+        table = IK.to_keys(np.zeros((rows, IK.N_LIMBS), np.uint32), dev)
+        valid = torch.ones(rows, dtype=torch.bool, device=dev)
+        hit, slot = probe(table, valid, ids)
+        hit.cpu(), slot.cpu()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    _counts, _last, stale, _targets = radix.maintenance_sweep(
+        ids[0], np.repeat(ids, 8, axis=0), np.ones(8, bool),
+        np.zeros(8, np.float64), 0.0, NODE_EXPIRE_TIME, gen, device=dev)
+    stale.cpu()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 #: devices a node on the CPU offers its resolve mesh: t virtual shards on
 #: the host, as the JAX package's tests run 8 virtual CPU devices
@@ -397,10 +448,11 @@ class Dht:
         first use), the snapshot's sort and expansion, and one device
         lookup at each k.
 
-        The port's one difference from the JAX warmup: a failure raises
+        The port's differences from the JAX warmup: a failure raises
         instead of going to a debug log — a kernel that cannot build or
         launch must not hide until the first wave, where the wave
-        builder would swallow it as a failed launch."""
+        builder would swallow it as a failed launch; and a node on the
+        card also runs :func:`warm_device`."""
         now = self.scheduler.time()
         target = [InfoHash.get_random()]
         q = IK.ids_from_hashes(target)
@@ -413,6 +465,8 @@ class Dht:
                     view = table.view(now)
                     for k in (TARGET_NODES, SEARCH_NODES):
                         view.lookup(q, k=k)
+        if self.device.type == "cuda":
+            warm_device(self.config, self.device)
 
     # ======================================================== routing plumbing
     def find_closest_nodes(self, target: InfoHash, af: int,

@@ -26,7 +26,9 @@ unchanged, the REST proxy backend included (``enable_proxy``,
 ``run(device=None)`` means the CUDA card and raises when there is none;
 tests pass ``device="cpu"``.  Every table and device call runs on the
 DHT thread (or the caller of ``loop()``); ``run`` builds the kernels
-(``Dht.warmup``) on the caller's thread.
+(``Dht.warmup``) on the caller's thread, and on the card first makes
+the CUDA context and loads the node's kernels there (``dht.warm_device``)
+before the node's scheduler clock starts.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ crypto = lazy_module("opendht_tpu_torch.crypto")
 from ..core.value import Value
 from ..scheduler import Scheduler
 from .config import Config, NodeStatus
-from .dht import Dht
+from .dht import Dht, warm_device
 from .secure_dht import SecureDht, secure_node_id
 
 log = logging.getLogger("opendht_tpu_torch.runner")
@@ -208,6 +210,11 @@ class DhtRunner:
             dht_config.node_id = secure_node_id(config.identity[1])
         has_v6 = ipv6 and (self._sock6 is not None
                            or (self._udp is not None and self._udp.has_v6))
+        if device.type == "cuda":
+            # the card's context and the node's kernels, before the
+            # node's scheduler clock starts (Dht.warmup's own call is
+            # then quick): the wait is no job's lag
+            warm_device(dht_config, device)
         dht = Dht(self._send, dht_config, Scheduler(),
                   has_v4=True, has_v6=has_v6, device=device)
         self._dht = SecureDht(dht, config.identity)

@@ -28,9 +28,16 @@ its command line):
   ``netns_net`` (clusters in Linux network namespaces), ``scanner``
   (the keyspace crawl), ``http_server`` (the HTTP control front) and
   ``network_monitor`` (the put→listen probe).
+- The end-to-end smokes, one real-UDP (or virtual-net) cluster each,
+  every one a CLI (``python -m opendht_tpu_torch.testing.<name> [--cpu]``,
+  exit 0 and an OK line): ``telemetry_smoke``, ``ledger_smoke`` (the
+  kernel cost ledger's export), ``health_smoke``, ``history_smoke``,
+  ``waterfall_smoke``, ``peer_smoke``, ``keyspace_smoke``,
+  ``cache_smoke``, ``listener_smoke``, ``ingest_smoke``,
+  ``pipeline_smoke``, ``pipeline_util_smoke``, ``reshard_smoke`` and
+  ``chaos_smoke`` (with the device swarm's storm).
 
-Each submodule resolves as an attribute on first use.  The JAX
-package's other smokes are not ported yet (ROADMAP A.5).
+Each submodule resolves as an attribute on first use.
 """
 
 from .virtual_net import VirtualNet
@@ -46,22 +53,7 @@ _LAZY_EXPORTS = {
 }
 
 
-#: the JAX package's ``testing`` modules the port does not carry yet,
-#: each with the ROADMAP item that takes it
-_NOT_PORTED = {
-    **dict.fromkeys(("cache_smoke", "chaos_smoke", "health_smoke",
-                     "history_smoke", "ingest_smoke", "keyspace_smoke",
-                     "ledger_smoke", "listener_smoke", "peer_smoke",
-                     "pipeline_smoke", "pipeline_util_smoke",
-                     "reshard_smoke", "waterfall_smoke"), "A.5"),
-}
-
-
 def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            f"opendht_tpu_torch.testing.{name} (testing/{name}.py) is not "
-            f"ported yet (ROADMAP {_NOT_PORTED[name]})")
     import importlib
     import importlib.util
     mod = _LAZY_EXPORTS.get(name)

@@ -19,7 +19,22 @@ on the CPU, tolerance 0.
   "no CUDA device" before it binds a socket.
 
 tests/test_cluster_tools.py marks its HTTP case slow; its twin keeps
-the mark.  Every real-UDP wait here has its own limit of at least 60 s.
+the mark.  Every real-UDP wait here has its own limit of at least 60 s:
+the cases' ``_wait_connected`` (the trace assembler's, 30 s by default)
+waits ``WAIT`` in both runs (:func:`run_case_twins`), since a loaded
+host's JAX nodes have taken more than 30 s to connect a 5-node
+``NodeCluster`` (their bootstrap is retried every 10 s).  And in both
+runs the runners keep packets that waited in their receive queue
+(``RX_QUEUE_MAX_DELAY`` raised from 0.5 s to 60 s, as
+tests/test_torch_monitor.py's mixed cluster does): on a loaded host a
+JAX node's DHT thread sits in its first XLA compiles past 0.5 s and
+drops what queued meanwhile, after which a 2-node network monitor can
+miss its round (its put's peer marked expired).  A case's
+``assemble_trace`` assembles the trace once it has settled (every
+server and RPC span's parent recorded, the span count still for a
+second; limit ``WAIT``): a get can end while requests of its search are
+in flight, and a server span recorded before the reply reached its
+client's RPC span made ``check_tree`` report an orphan under load.
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ import io
 import json
 import socket
 import sys
+import time
 
 import pytest
 import torch
@@ -49,6 +65,10 @@ TOOL_FILES = ("testing/dhtcluster.py", "testing/scanner.py",
 # functions whose results depend only on their arguments (a breach list
 # carries measured latencies)
 PURE = ("offline_geo", "_key_of", "parse_alerts")
+# the limit of a case's wait for its cluster to connect
+WAIT = 60.0
+# how long a twin run's runners keep a packet queued for their DHT thread
+HELD_DELAY = 60.0
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -109,14 +129,55 @@ def tool_record(case, kwargs: dict, pkg: str, files=TOOL_FILES) -> dict:
     return {"calls": calls, "pure": pure}
 
 
+def _after_settling(assemble, collect):
+    """``assemble`` (the trace assembler's) once the trace has settled:
+    every server and RPC span's parent among the collected spans and
+    their count unchanged for a second, or after ``WAIT`` seconds."""
+    def settled(nodes, trace_id):
+        deadline, last, still = time.monotonic() + WAIT, None, 0
+        while time.monotonic() < deadline:
+            spans = collect(nodes, trace_id)
+            ids = {sp["span_id"] for sp in spans}
+            whole = all(sp.get("parent_id") in ids for sp in spans
+                        if sp.get("kind") == "server"
+                        or sp["name"].startswith("dht.rpc."))
+            still = still + 1 if whole and len(spans) == last else 0
+            if still >= 10:
+                break
+            last = len(spans)
+            time.sleep(0.1)
+        return assemble(nodes, trace_id)
+    return settled
+
+
+def _own_limit(wait_connected):
+    """``wait_connected`` with a default limit of ``WAIT`` seconds."""
+    def wait(nodes, timeout=WAIT):
+        return wait_connected(nodes, timeout=timeout)
+    return wait
+
+
 def run_case_twins(fname: str, name: str, monkeypatch, files=TOOL_FILES,
                    **fixtures) -> tuple:
     """Case ``name`` of tests/<fname> on the JAX package, then on the port
-    (device None read as the CPU); their records over ``files``."""
+    (device None read as the CPU); their records over ``files``.  A
+    case's ``_wait_connected`` waits ``WAIT`` seconds, and its runners
+    keep packets queued up to ``HELD_DELAY`` seconds, in both runs."""
+    import importlib
     out = []
     for pkg in ("jax", "port"):
-        case = jax_case_namespace(fname, pkg)[name]
+        ns = jax_case_namespace(fname, pkg)
+        if "_wait_connected" in ns:
+            ns["_wait_connected"] = _own_limit(ns["_wait_connected"])
+        if "assemble_trace" in ns:
+            ns["assemble_trace"] = _after_settling(ns["assemble_trace"],
+                                                   ns["collect_spans"])
+        case = ns[name]
+        runner = importlib.import_module(
+            {"jax": "opendht_tpu", "port": "opendht_tpu_torch"}[pkg]
+            + ".runtime.runner")
         with monkeypatch.context() as m:
+            m.setattr(runner, "RX_QUEUE_MAX_DELAY", HELD_DELAY)
             if pkg == "port":
                 cpu_by_default(m)
             out.append(tool_record(case, fixtures, pkg, files))
@@ -151,6 +212,36 @@ def test_tool_case_twin(fname, name, monkeypatch, capsys):
     assert jax_rec["calls"], "the case reached no traced function"
     assert port_rec["calls"] == jax_rec["calls"]
     assert port_rec["pure"] == jax_rec["pure"]
+
+
+def test_a_cases_wait_for_its_cluster_has_its_own_limit():
+    for pkg in ("jax", "port"):
+        wait = _own_limit(jax_case_namespace("test_tracing.py",
+                                             pkg)["_wait_connected"])
+        assert inspect.signature(wait).parameters["timeout"].default \
+            == WAIT >= 60.0
+        assert wait([]) is True                  # no node: connected
+
+
+def test_a_trace_is_assembled_once_settled():
+    """A server span whose client RPC span is still open (its reply in
+    flight) is assembled only once that RPC span is recorded."""
+    import threading
+    from opendht_tpu_torch.testing import trace_assembler as ta
+    tid = "ab" * 16
+    op = {"trace_id": tid, "span_id": "1" * 16, "parent_id": "f" * 16,
+          "name": "dht.op.get", "kind": "internal", "start": 0.0,
+          "node": "a"}
+    rpc = {**op, "span_id": "2" * 16, "parent_id": op["span_id"],
+           "name": "dht.rpc.get", "kind": "client", "start": 0.1}
+    srv = {**op, "span_id": "3" * 16, "parent_id": rpc["span_id"],
+           "name": "dht.server.get", "kind": "server", "start": 0.2,
+           "node": "b"}
+    ring = [op, srv]
+    threading.Timer(0.3, ring.append, (rpc,)).start()
+    tree = _after_settling(ta.assemble_trace, ta.collect_spans)([ring], tid)
+    assert tree["spans"] == 3 and ta.check_tree(tree) == []
+    assert [r["name"] for r in tree["roots"]] == ["dht.op.get"]
 
 
 # --------------------------------------------------- the CLIs on the CPU

@@ -742,6 +742,55 @@ def test_warmup_builds_the_snapshot_and_raises_on_failure(monkeypatch):
         dht.warmup()
 
 
+def test_warm_device_runs_each_program_at_the_node_shapes(monkeypatch):
+    """``warm_device`` (run on the card by ``Dht.warmup`` and, before the
+    node's scheduler starts, by ``DhtRunner.run``) calls the sketch's
+    update, query and decay, both probes and the maintenance sweep once,
+    at the shapes the node's config gives its planes, and leaves a
+    node's planes and table as they were: no device state made, nothing
+    observed, the table's maintenance generator not drawn."""
+    from opendht_tpu_torch.ops import cache_probe as cp
+    from opendht_tpu_torch.ops import listener_match as lm
+    from opendht_tpu_torch.ops import radix
+    from opendht_tpu_torch.ops import sketch as sk
+    from opendht_tpu_torch.runtime.dht import warm_device
+    cfg = Config()
+    cfg.keyspace.width, cfg.cache.capacity, cfg.listeners.capacity = \
+        1024, 32, 256
+    dht = Dht(lambda d, a: 0, cfg, has_v6=False, device="cpu")
+    calls = []
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def call(*a, **kw):
+            calls.append((name, tuple(a[0].shape)))
+            return real(*a, **kw)
+        monkeypatch.setattr(mod, name, call)
+    for mod, name in ((sk, "sketch_update"), (sk, "sketch_query"),
+                      (sk, "sketch_decay"), (cp, "cache_probe"),
+                      (lm, "listener_match"), (radix, "maintenance_sweep")):
+        spy(mod, name)
+    before = (dht.keyspace.snapshot(), dht.hotcache.snapshot())
+    warm_device(cfg, "cpu")
+    assert calls == [("sketch_update", (4, 1024)),
+                     ("sketch_query", (4, 1024)),
+                     ("sketch_decay", (4, 1024)),
+                     ("cache_probe", (32, 5)),
+                     ("listener_match", (256, 5)),
+                     ("maintenance_sweep", (5,))]
+    assert (dht.keyspace.snapshot(), dht.hotcache.snapshot()) == before
+    assert dht.keyspace._device_ok is dht.hotcache._device_ok \
+        is dht.listener_table._device_ok is None
+    assert dht.tables[AF]._maint_gen is None
+    # a node without the observatory skips the sketch
+    calls.clear()
+    cfg.keyspace.enabled = False
+    warm_device(cfg, "cpu")
+    assert [c[0] for c in calls] == ["cache_probe", "listener_match",
+                                     "maintenance_sweep"]
+
+
 def test_ingest_failures_counter_lives_on_the_port_registry():
     from opendht_tpu import telemetry as jtel
     from opendht_tpu_torch import telemetry as ptel

@@ -18,8 +18,11 @@ against the JAX package's, on the CPU, tolerance 0.
   ``DhtNetwork`` whose later nodes (``launch_node``, ``replace_cluster``)
   run on the device it was given.
 - ``pingpong --cpu``; and without a card and without ``--cpu``,
-  ``benchmark``, ``pingpong``, ``telemetry_smoke`` and ``DhtNetwork``
-  raise before any node is built.
+  ``benchmark``, ``pingpong``, ``DhtNetwork`` and every smoke
+  (``telemetry_smoke`` and the thirteen of tests/test_torch_smokes_*.py)
+  raise before any node is built or socket bound.
+- Every ``testing`` module of the JAX package resolves on the port's
+  ``testing`` package.
 
 A JAX node polls each wave's result and, while it is not ready, re-arms
 the poll 2 ms of virtual time later, so on a loaded host the virtual
@@ -279,16 +282,28 @@ def test_pingpong_on_the_cpu():
 
 
 # --------------------------------------------------- the card by default
+SMOKES = ("telemetry_smoke", "ledger_smoke", "health_smoke",
+          "history_smoke", "waterfall_smoke", "peer_smoke",
+          "keyspace_smoke", "cache_smoke", "listener_smoke",
+          "ingest_smoke", "pipeline_smoke", "pipeline_util_smoke",
+          "reshard_smoke", "chaos_smoke")
+
+
+def _smoke_main(name: str):
+    import importlib
+    mod = importlib.import_module("opendht_tpu_torch.testing." + name)
+    return lambda: mod.main([])
+
+
 def _harness_entry_points():
     from opendht_tpu_torch.testing import benchmark, pingpong
-    from opendht_tpu_torch.testing import telemetry_smoke
     return {
         "benchmark": lambda: benchmark.main(["-t", "delete", "-n", "4"]),
         "benchmark --real": lambda: benchmark.main(["--real", "-n", "2"]),
         "pingpong": lambda: pingpong.main(["-n", "1"]),
-        "telemetry_smoke": lambda: telemetry_smoke.main([]),
         "DhtNetwork": lambda: DhtNetwork(1),
         "build_net": lambda: build_net(2),
+        **{name: _smoke_main(name) for name in SMOKES},
     }
 
 
@@ -307,15 +322,22 @@ def test_without_a_card_the_harness_raises(name, monkeypatch):
 
 
 def test_the_testing_package_names_what_is_not_ported():
+    """Nothing is left unported: every module of the JAX package's
+    ``testing`` resolves as an attribute of the port's."""
+    import pkgutil
+    import opendht_tpu.testing as J
     import opendht_tpu_torch.testing as T
     assert T.DhtNetwork is DhtNetwork and T.LatencyStats is LatencyStats
     assert set(T.__all__) == {"VirtualNet", "DhtNetwork", "PerformanceTest",
                               "PersistenceTest", "LatencyStats"}
-    # the cluster tools resolve as submodules; the A.5 smokes still raise
+    names = {m.name for m in pkgutil.iter_modules(J.__path__)}
+    assert set(SMOKES) <= names and len(names) == 29
+    for name in sorted(names):
+        mod = getattr(T, name)
+        assert mod.__name__ == "opendht_tpu_torch.testing." + name
+    assert not hasattr(T, "_NOT_PORTED")
     from opendht_tpu_torch.testing import subproc_cluster
     assert T.subproc_cluster is subproc_cluster
-    assert T.network_monitor.Monitor is not None
-    with pytest.raises(AttributeError, match=r"ROADMAP A\.5"):
-        T.peer_smoke
+    assert T.peer_smoke.main is not None
     with pytest.raises(AttributeError, match="no attribute"):
         T.no_such_module

@@ -9,9 +9,9 @@ the CPU (the tools' ``setup_node`` without ``--cpu`` among them); the
 periphery (a REST proxy server and client, a PHT over the port's
 ``VirtualNet``, the dhtnode REPL) loads no JAX module; nor does
 ``dhtmon.run_checks`` over a ``DhtNetwork`` with its coverage probe; and
-``chip_smoke.py`` fails without a card and rehearses every phase on the
-CPU, the proxy and monitor phases included, without claiming a chip
-run."""
+``chip_smoke.py`` fails without a card and rehearses its in-process
+phases on the CPU without claiming a chip run (its phases in processes
+of their own are rehearsed in tests/test_torch_*_phase.py)."""
 
 import json
 import os
@@ -84,7 +84,13 @@ def test_importing_the_port_loads_no_jax():
                 "testing.pingpong", "tools.dhtmon", "testing.dhtcluster",
                 "testing.subproc_cluster", "testing.netns_net",
                 "testing.scanner", "testing.http_server",
-                "testing.network_monitor"):
+                "testing.network_monitor", "testing.ledger_smoke",
+                "testing.health_smoke", "testing.history_smoke",
+                "testing.waterfall_smoke", "testing.peer_smoke",
+                "testing.keyspace_smoke", "testing.cache_smoke",
+                "testing.listener_smoke", "testing.ingest_smoke",
+                "testing.pipeline_smoke", "testing.pipeline_util_smoke",
+                "testing.reshard_smoke", "testing.chaos_smoke"):
         assert f"opendht_tpu_torch.{mod}" in want
 
 
@@ -515,12 +521,13 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
                       "--serve-gets", "100", "--planes-keys", "200",
                       "--planes-gets", "600", "--scale-n", "20000",
                       "--scale-q", "256", "--swarm-n", "2048",
-                      "--proxy-keys", "64", "--pht-entries", "17",
-                      "--monitor-runners", "8", "--monitor-keys", "128",
-                      # every phase but cluster, which
-                      # tests/test_torch_cluster_phase.py rehearses
+                      # every phase but cluster, smokes, proxy and
+                      # monitor, which tests/test_torch_cluster_phase.py,
+                      # test_torch_smokes_phase.py and
+                      # test_torch_periphery_phase.py rehearse (one file
+                      # a phase process: under -n 6 each gets a worker)
                       "--phases", "search,maintenance,churn,serve,runner,"
-                      "proxy,monitor,planes,scale,ledger,swarm,bench",
+                      "planes,scale,ledger,swarm,bench",
                       records=tmp_path)
     assert out.returncode == 3, out.stderr[-2000:]
     lines = [json.loads(l) for l in out.stdout.splitlines()
@@ -528,8 +535,7 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
     phases = [l.get("phase") for l in lines]
     assert phases[:-1] == ["device", "main", "parity", "timing", "profile",
                            "memory", "search", "maintenance", "churn",
-                           "serve", "runner", "proxy", "monitor", "planes",
-                           "scale",
+                           "serve", "runner", "planes", "scale",
                            "ledger",
                            "ledger_q1_split", "swarm", "swarm_oracle",
                            "bench", "timing_gate"]
@@ -566,32 +572,6 @@ def test_chip_smoke_rehearses_every_phase_on_the_cpu(tmp_path):
             runner["ingest_wave_failures"]) == (0, 0, 0)
     assert runner["datagrams_sent"]["off_loopback"] == 0
     assert runner["crypto_modules"] == runner["live_runner_threads"] == []
-    proxy = lines[phases.index("proxy")]
-    assert proxy["rows"] == 8192 and proxy["rest"]["equal_to_direct_get"] == 64
-    assert proxy["rest"]["listen_streams"] == {"streams": 16, "values_each": 2}
-    assert proxy["rest"]["open_bounds"] == {"platform": "cpu",
-                                            "status": "unsettled"}
-    assert proxy["rest"]["kernel_gauges"] > 0
-    assert proxy["swap"]["puts_heard_once"] == 3
-    assert proxy["pht"]["entries"] == proxy["pht"]["exact_lookups"] == 17
-    assert proxy["dhtnode"] == {**proxy["dhtnode"], "device": "cpu",
-                                "kernels_named": 16, "jax_modules": []}
-    assert proxy["farm"]["errors"] == 0 and proxy["farm"]["requests"] > 0
-    assert (proxy["error_records"], proxy["ingest_wave_failures"]) == (0, 0)
-    assert proxy["datagrams_sent"]["off_loopback"] == 0
-    assert proxy["live_threads"] == []
-    monitor = lines[phases.index("monitor")]
-    assert (monitor["runners"], monitor["keys"]) == (8, 128)
-    assert monitor["traffic"]["equal_gets"] == 32
-    assert monitor["dhtmon"]["keys"] == 128
-    assert monitor["dhtmon"]["closest8_equal_numpy"] == 128
-    assert monitor["timeline"]["nodes"] == 8
-    assert monitor["timeline"]["violations"] == []
-    assert monitor["removal"]["nodes"] == 6
-    for child in ("dhtmon_cli", "benchmark", "pingpong"):
-        assert monitor[child]["jax_modules"] == [], child
-    assert monitor["benchmark"]["doc"]["count"] == 16
-    assert monitor["error_records"] == 0 and monitor["live_threads"] == []
     planes = lines[phases.index("planes")]
     assert planes["puts"]["keys"] == 200
     assert planes["gets"]["gets"] == 600

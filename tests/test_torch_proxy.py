@@ -323,9 +323,14 @@ def test_push_gateway_http(topology):
         assert n["priority"] == "high" and n["time_to_live"] == 600
         assert n["data"] == {"key": key.hex(), "to": "gw-client",
                              "token": "777"}
+        from opendht_tpu_torch.proxy.server import OP_MARGIN
         with server._lock:
             rec = server._push_listeners[(key, "gw-client")]
-            rec.deadline = time.monotonic() + 1.0   # within OP_MARGIN
+            # within OP_MARGIN of its expiry, and far from the expiry
+            # itself: the maintenance pass (every 1 s, later on a loaded
+            # host) expires a listener past its deadline before it
+            # looks for refreshes
+            rec.deadline = time.monotonic() + OP_MARGIN / 2
         assert wait_for(lambda: any("timeout" in p["notifications"][0]["data"]
                                     for _, p in got)), got
         refresh = next(p for _, p in got
@@ -487,6 +492,13 @@ def test_cache_endpoint(topology):
         done.append(True)
     proxy_node._post(observe, prio=True)
     assert wait_for(lambda: done)
+
+    def admitted():
+        return key.hex() in [e["key"] for e in _get(server, "/cache")[1]
+                             ["entries"]]
+    # the admission completes on the node's thread after the tick: on a
+    # loaded host GET /cache can come first
+    wait_for(admitted)
     code, doc = _get(server, "/cache")
     assert code == 200
     assert key.hex() in [e["key"] for e in doc["entries"]], doc
@@ -548,12 +560,18 @@ def test_history_endpoint(topology):
     h.tick()
     assert proxy_node.get_sync(key, timeout=WAIT)
     h.tick()
-    code, doc = _get(server, "/history")
+    # the recorder also ticks on its own (every period): read the full
+    # ring and its last frame with no tick between them
+    for _ in range(20):
+        code, doc = _get(server, "/history")
+        code_l, lim = _get(server, "/history?limit=1")
+        if _get(server, "/history")[1]["frames"][-1]["seq"] \
+                == doc["frames"][-1]["seq"]:
+            break
     assert code == 200 and doc["enabled"] is True
     assert doc["frames"] and "time" in doc and "mono" in doc
     assert doc["node_id"] == proxy_node.get_node_id().hex()
-    code, lim = _get(server, "/history?limit=1")
-    assert len(lim["frames"]) == 1
+    assert code_l == 200 and len(lim["frames"]) == 1
     assert lim["frames"][0]["seq"] == doc["frames"][-1]["seq"]
     code, win = _get(server, "/history?since=0.0001")
     assert len(win["frames"]) <= len(doc["frames"])
