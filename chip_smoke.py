@@ -21,7 +21,11 @@ Phases, one JSON line each:
              rows) at k ∈ {1,8,16,21}, and on the main path's own
              (expanded, j); lex_topk_select at W ∈ {32,128,256,1024},
              k ∈ {8,16} with invalid rows and exhaustion, and on the main
-             path's own windows.
+             path's own windows.  Then the id functions of
+             opendht_tpu_torch.ops (popcount32, ctz32, lex_eq, lex_cmp,
+             xor_cmp) on ID_PAIRS pairs of the main path's query keys,
+             on the device, equal to a numpy oracle of the JAX package's
+             semantics.
 4. main    — NodeTable(device="cuda").bulk_load(1,000,000 seeded ids), then
              find_closest on 131,072 seeded targets at k=16 and k=8, then
              lookup_topk(expanded=None, window=128, k=16) on the same
@@ -138,12 +142,21 @@ Phases, one JSON line each:
              over the reachable rows (read on the DHT thread); each run
              reports requests/s, p50 / p99 latency, the node's
              per-packet step and pumps and the lookups per route.  Then
-             three more runners on the card bootstrap to each other:
-             put_sync / get_sync of RUNNER_VALUES values across them and
-             one listen round-trip.  Fails on any ERROR record of the port's
-             loggers, ingest wave failure, "dropping packet with high
-             delay" warning, datagram sent off loopback,
-             ``cryptography`` / ``argon2`` in sys.modules, or runner
+             a filtered get_sync (``Where("WHERE id=…")``) and an
+             unfiltered one on the node, of WHERE_IDS values stored
+             there: the filtered answer must be the unfiltered one's
+             value of that id, and on the card window_select must launch
+             for their resolve.  Then three more runners on the card,
+             made and fed through the package's top-level names
+             (``opendht_tpu_torch.DhtRunner``, ``.InfoHash``, ``.Value``,
+             ``.Where``), bootstrap to each other: put_sync / get_sync of
+             RUNNER_VALUES values across them, one value of WHERE_IDS
+             put by each and a filtered get_sync of another's from each
+             (exact), and one listen round-trip.  Fails on any ERROR
+             record of the port's loggers, ingest wave failure,
+             "dropping packet with high delay" warning, datagram sent
+             off loopback, ``cryptography`` / ``argon2`` in
+             sys.modules, or runner
              thread left alive after every runner is joined.
              (--serve-n / --serve-q size it with the serve phase.)
 13. proxy  — the periphery in front of the live node, on the card, in
@@ -321,8 +334,11 @@ Phases, one JSON line each:
              a numpy XOR scan of the census and its held counts a host
              recount; the probe alone is timed and profiled; ``python -m
              opendht_tpu_torch.tools.dhtmon --require-ready --json`` as a
-             child.  (d) a chaos LinkRule dropping one directed link, 16
-             gets driven over it at once: assemble_wiremap over every GET
+             child.  (d) a chaos LinkRule dropping one directed link
+             (its source first pings its destination and waits for the
+             answer, so that an earlier expiry does not leave the
+             destination expired in the source's table), 16 gets driven
+             over it at once: assemble_wiremap over every GET
              /peers ranks it first by fail_ratio among the edges that
              dhtmon's max_peer_fail gate reads (those past
              PeersConfig.min_signal_events requests); assemble_timeline over
@@ -438,6 +454,10 @@ OPS_PER_S = 67e12              # H100 SXM 32-bit rate outside the tensor cores
 SERVE_WINDOW = 4
 # values put and got across the runner phase's small cluster
 RUNNER_VALUES = 64
+# value ids stored under one key for the runner phase's filtered gets
+# (``Where("WHERE id=…")``): on the live node, and one put by each runner
+# of the small cluster
+WHERE_IDS = (11, 12, 13)
 # the phases after main, in their order; --phases picks some of them
 LATE_PHASES = ("search", "maintenance", "churn", "serve", "runner",
                "proxy", "monitor", "cluster", "planes", "scale", "ledger",
@@ -470,6 +490,54 @@ def max_abs_err(a, b) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+# pairs of the main path's query keys that the parity phase's id
+# functions run on
+ID_PAIRS = 4096
+
+
+def id_function_parity(keys, self_key) -> dict:
+    """``popcount32``, ``ctz32``, ``lex_eq``, ``lex_cmp`` and ``xor_cmp``
+    of ``opendht_tpu_torch.ops`` on the device against a numpy oracle of
+    the JAX package's semantics (``opendht_tpu/ops/ids.py``): pairs
+    (keys[i], keys[i-1]), every 16th pair made equal; the bit functions
+    on the pairs' raw XOR bits and the ids' own.  Returns the counts of
+    each outcome and the mismatches per function."""
+    import torch
+    from opendht_tpu_torch import ops as O
+    a = keys
+    b = torch.roll(keys, 1, 0).clone()
+    b[::16] = a[::16]
+    raw = torch.cat([(a ^ b).reshape(-1), (a ^ O.ids.FLIP).reshape(-1)])
+    got = {"popcount32": O.popcount32(raw), "ctz32": O.ctz32(raw),
+           "lex_eq": O.lex_eq(a, b), "lex_cmp": O.lex_cmp(a, b),
+           "xor_cmp": O.xor_cmp(self_key, a, b)}
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    ua, ub, us = O.from_keys(a), O.from_keys(b), O.from_keys(self_key)
+    x = O.from_keys(raw ^ O.ids.FLIP)             # the raw bits as uint32
+    bits = (x[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+
+    def cmp(p, q):                                # memcmp of limb rows
+        d = p != q
+        first = d.argmax(axis=-1)[:, None]
+        lt = np.take_along_axis(p, first, -1) < np.take_along_axis(q, first,
+                                                                   -1)
+        return np.where(d.any(-1), np.where(lt[:, 0], -1, 1), 0)
+    want = {"popcount32": bits.sum(-1),
+            "ctz32": np.where(x == 0, 32, bits.argmax(-1)),
+            "lex_eq": (ua == ub).all(-1), "lex_cmp": cmp(ua, ub),
+            "xor_cmp": cmp(ua ^ us, ub ^ us)}
+    mismatches = {k: int((got[k] != want[k]).sum()) for k in want}
+    return {"pairs": int(a.shape[0]), "bit_patterns": int(x.shape[0]),
+            "equal_pairs": int(want["lex_eq"].sum()),
+            "zero_patterns": int((x == 0).sum()),
+            "lex_cmp": {str(v): int((want["lex_cmp"] == v).sum())
+                        for v in (-1, 0, 1)},
+            "xor_cmp": {str(v): int((want["xor_cmp"] == v).sum())
+                        for v in (-1, 0, 1)},
+            "popcount32_sum": int(want["popcount32"].sum()),
+            "mismatches": mismatches}
 
 
 def median_ms(fn, *, reps: int = 7, inner: int = 1, warmup: int = 2,
@@ -2041,9 +2109,9 @@ def runner_phase(args, dev, card, sync) -> int:
     import ipaddress
     import socket
     import threading
+    import opendht_tpu_torch as o
     from opendht_tpu_torch import telemetry
     from opendht_tpu_torch.core import table as CT
-    from opendht_tpu_torch.core.value import Value
     from opendht_tpu_torch.infohash import InfoHash
     from opendht_tpu_torch.ops import ids as IK
     from opendht_tpu_torch.ops.window_select import window_select
@@ -2251,10 +2319,55 @@ def runner_phase(args, dev, card, sync) -> int:
             node._loop = node_loop
             inner.periodic = inner_periodic
 
+            # ---- a filtered get on the node, through the public names:
+            # WHERE_IDS stored on the node, one filtered and one
+            # unfiltered get_sync in flight together; their search
+            # resolves on the 1M rows (no loaded peer answers, so each
+            # get ends when its candidates expire)
+            wkey = o.InfoHash.get("runner-where")
+            wid = WHERE_IDS[1]
+
+            def store(dht):
+                now = dht._dht.scheduler.time()
+                return [dht._dht.storage_store(
+                    wkey, o.Value(b"where %d" % i, value_id=i), now)
+                    for i in WHERE_IDS]
+            require(all(on_dht(store)), "the node stored WHERE_IDS")
+            lookups.take()
+            window_select.launches = 0
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(2) as pool:
+                filtered = pool.submit(node.get_sync, wkey,
+                                       where=o.Where(f"WHERE id={wid}"))
+                unfiltered = pool.submit(node.get_sync, wkey)
+                filtered, unfiltered = filtered.result(), unfiltered.result()
+            where_s = time.perf_counter() - t0
+            where_launches = window_select.launches
+            where_routes = LookupRoutes.routes(lookups.take())
+            launches += where_launches
+            require(sorted(v.id for v in unfiltered) == list(WHERE_IDS),
+                    f"the node's unfiltered get: "
+                    f"{sorted(v.id for v in unfiltered)}")
+            require([(v.id, v.data) for v in filtered]
+                    == [(v.id, v.data) for v in unfiltered if v.id == wid]
+                    == [(wid, b"where %d" % wid)],
+                    f"the node's filtered get: {filtered}")
+            require(sum(where_routes.values()) >= 1,
+                    f"the node's gets resolved on its table: {where_routes}")
+            if cuda:
+                require(where_launches >= 1, "window_select launched for the "
+                        "node's filtered get")
+            where_out = {"key_values": len(WHERE_IDS), "where": f"id={wid}",
+                         "filtered": len(filtered),
+                         "unfiltered": len(unfiltered), "exact": True,
+                         "routes": where_routes,
+                         "window_select_launches": where_launches,
+                         "s": where_s}
+
             # ---- a small cluster: three more runners on the card -------
             small = []
             for _ in range(3):
-                r = DhtRunner()
+                r = o.DhtRunner()
                 runners.append(r)
                 small.append(r)
                 r.run(0, device=device)
@@ -2271,32 +2384,51 @@ def runner_phase(args, dev, card, sync) -> int:
             require(all(r.get_status().name == "CONNECTED" for r in small),
                     "the three runners connected")
             heard = []
-            lkey = InfoHash.get("runner-phase-listen")
+            lkey = o.InfoHash.get("runner-phase-listen")
             tok = small[2].listen(lkey, lambda vals, exp: heard.extend(
                 v.data for v in vals if not exp) or True)
             require(tok.result(30) >= 1, "listen registered")
             t0 = time.perf_counter()
             for i in range(RUNNER_VALUES):
                 require(small[i % 3].put_sync(
-                    InfoHash.get(f"runner-value-{i}"), Value(b"value %d" % i),
-                    timeout=30), f"put_sync {i}")
+                    o.InfoHash.get(f"runner-value-{i}"),
+                    o.Value(b"value %d" % i), timeout=30), f"put_sync {i}")
             put_s = time.perf_counter() - t0
             t0 = time.perf_counter()
             for i in range(RUNNER_VALUES):
                 got = small[(i + 1) % 3].get_sync(
-                    InfoHash.get(f"runner-value-{i}"), timeout=30)
+                    o.InfoHash.get(f"runner-value-{i}"), timeout=30)
                 require([v.data for v in got] == [b"value %d" % i],
                         f"get_sync {i} found the value put on another "
                         "runner")
             get_s = time.perf_counter() - t0
-            small[0].put(lkey, Value(b"heard"))
+            # one value a runner under one key, and a filtered get of
+            # another runner's value from each
+            skey = o.InfoHash.get("runner-where-cluster")
+            t0 = time.perf_counter()
+            for r, i in zip(small, WHERE_IDS):
+                require(r.put_sync(skey, o.Value(b"where %d" % i, value_id=i),
+                                   timeout=30), f"put_sync of id {i}")
+            for n, r in enumerate(small):
+                i = WHERE_IDS[(n + 1) % 3]
+                got = r.get_sync(skey, timeout=30,
+                                 where=o.Where(f"WHERE id={i}"))
+                require([(v.id, v.data) for v in got]
+                        == [(i, b"where %d" % i)],
+                        f"filtered get_sync of id {i}: {got}")
+            where_cluster_s = time.perf_counter() - t0
+            small[0].put(lkey, o.Value(b"heard"))
             end = time.monotonic() + 30
             while time.monotonic() < end and b"heard" not in heard:
                 time.sleep(0.05)
             require(heard == [b"heard"], "the listener heard the remote put")
             cluster_out = {"runners": 3, "connect_s": connect_s,
                            "values": RUNNER_VALUES, "put_sync_s": put_s,
-                           "get_sync_s": get_s, "listen": "heard"}
+                           "get_sync_s": get_s, "listen": "heard",
+                           "filtered_gets": len(small), "filtered_exact": True,
+                           "filtered_s": where_cluster_s,
+                           "names": "opendht_tpu_torch.{DhtRunner,InfoHash,"
+                                    "Value,Where}"}
         finally:
             csock.close()
             for r in runners:
@@ -2309,7 +2441,8 @@ def runner_phase(args, dev, card, sync) -> int:
     emit({"phase": "runner", **card, "native_engine": True,
           "run_s": run_s, "load": load_out, "burst": burst_out,
           "churn": churn_out, "across_compaction": compaction_out,
-          "cluster": cluster_out, "ingest_wave_failures": failures,
+          "where_get": where_out, "cluster": cluster_out,
+          "ingest_wave_failures": failures,
           "error_records": len(records.errors),
           "planes_dark_records": len(records.dark),
           "delay_drops": len(records.delay_drops),
@@ -3122,6 +3255,55 @@ MONITOR_WINDOW = 16
 MONITOR_LINK_KEYS = MONITOR_WINDOW
 
 
+def drop_link(net, ia: int, ib: int, seed: int,
+              timeout: float = 30.0) -> dict:
+    """Drop the directed link from ``net.nodes[ia]`` (A) to
+    ``net.nodes[ib]`` (B) with a chaos LinkRule, drive
+    MONITOR_LINK_KEYS gets from A towards B's id at once, and wait until
+    at least 3 of A's requests to B have expired; then lift the rule.
+    Returns A's peer record of B (``get_peers``) and B's status in A's
+    ledger before and after the ping below.
+
+    A pings B and waits for the answer before the link drops: one
+    request of A's to B that the loaded earlier traffic let expire marks
+    B expired in A's table, A's searches skip an expired node, and
+    nothing B sends clears the mark while A's replies are dropped, so
+    without the ping A may send B nothing to expire."""
+    from opendht_tpu_torch import chaos
+    from opendht_tpu_torch.infohash import InfoHash
+
+    a, b = net.nodes[ia], net.nodes[ib]
+    b_hex = str(b.get_node_id())
+
+    def a_to_b() -> dict:
+        return next((p for p in a.get_peers().get("peers", [])
+                     if p["id"] == b_hex), None) or {}
+    before = a_to_b().get("status")
+    pong, answered = threading.Event(), []
+    a._ping(("127.0.0.1", b.get_bound_port()),
+            lambda ok: (answered.append(ok), pong.set()))
+    require(pong.wait(timeout) and answered[0],
+            f"B answered A's ping before the drop: {a_to_b()}")
+    pinged = a_to_b().get("status")
+    net.arm(chaos.FaultPlan([chaos.Phase("drop", 0.0, None, rules=[
+        chaos.LinkRule(name="drop", src="a", dst="b", loss=1.0)])],
+        seed=seed), groups={ia: "a", ib: "b"})
+    try:
+        b_id = bytes(b.get_node_id())
+        events = [threading.Event() for _ in range(MONITOR_LINK_KEYS)]
+        for i, ev in enumerate(events):
+            a.get(InfoHash(_near_id(b_id, 150, b"link-%d" % i)),
+                  lambda vals: True, lambda ok, ns, _ev=ev: _ev.set())
+        for ev in events:
+            require(ev.wait(120), "a get towards B finished")
+        require(_wait(lambda: a_to_b().get("expired", 0) >= 3, timeout),
+                f"A's requests to B expired: {a_to_b()}")
+    finally:
+        net.disarm()
+    return {"record": a_to_b(), "status_before_ping": before,
+            "status_after_ping": pinged}
+
+
 def closest_np(ids: np.ndarray, key: bytes, k: int) -> list:
     """The ``k`` rows of ``ids`` (uint8 [N, 20]) XOR-closest to ``key``,
     by a plain numpy scan."""
@@ -3135,7 +3317,6 @@ def monitor_phase(args, dev, card, sync) -> int:
     the coverage probe's resolves."""
     import threading
     from torch.profiler import ProfilerActivity, profile
-    from opendht_tpu_torch import chaos
     from opendht_tpu_torch.core.value import Value
     from opendht_tpu_torch.infohash import InfoHash
     from opendht_tpu_torch.ops.window_select import window_select
@@ -3399,23 +3580,7 @@ def monitor_phase(args, dev, card, sync) -> int:
             ia, ib = (int(i) for i in rng.choice(np.arange(1, n), 2,
                                                  replace=False))
             a, b = net.nodes[ia], net.nodes[ib]
-            plan = chaos.FaultPlan([chaos.Phase("drop", 0.0, None, rules=[
-                chaos.LinkRule(name="drop", src="a", dst="b", loss=1.0)])],
-                seed=args.seed)
-            net.arm(plan, groups={ia: "a", ib: "b"})
-            b_id = bytes(b.get_node_id())
-            near = [InfoHash(_near_id(b_id, 150, b"link-%d" % i))
-                    for i in range(MONITOR_LINK_KEYS)]
-            windowed([(lambda done, _k=k: a.get(
-                _k, lambda vals: True, lambda ok, ns: done(ok)))
-                for k in near])
-
-            def a_to_b():
-                return next((p for p in a.get_peers().get("peers", [])
-                             if p["id"] == str(b.get_node_id())), None)
-            require(_wait(lambda: (a_to_b() or {}).get("expired", 0) >= 3,
-                          30), f"A's requests to B expired: {a_to_b()}")
-            net.disarm()
+            dropped = drop_link(net, ia, ib, args.seed)
             docs = [wma.scrape_peers(ep) for ep in eps]
             require(all(d is not None for d in docs), "every GET /peers")
             wm = wma.assemble_wiremap(docs)
@@ -3433,6 +3598,10 @@ def monitor_phase(args, dev, card, sync) -> int:
             require(not wm["violations"], f"wire map: {wm['violations']}")
             legs["wiremap"] = {
                 "edges": len(wm["edges"]), "nodes": len(wm["nodes"]),
+                "b_in_a_before_ping": dropped["status_before_ping"],
+                "b_in_a_after_ping": dropped["status_after_ping"],
+                "a_to_b": {k: dropped["record"].get(k) for k in (
+                    "sent", "completed", "expired", "attempt_timeouts")},
                 "signal_floor": floor,
                 "edges_below_floor": len(every) - len(ranked),
                 "worst_is_the_dropped_link": found,
@@ -5606,10 +5775,18 @@ def main(argv=None) -> int:
         err["lex_topk_select"] = max(err["lex_topk_select"], e)
         checked["lex_topk_select"].append({"Q": args.q, "W": 128, "k": k,
                                            "err": e, "main_path": True})
+    # the id functions on the main path's own query keys
+    t0 = time.perf_counter()
+    id_parity = id_function_parity(
+        qk[:ID_PAIRS], IK.to_keys(IK.ids_from_hashes([self_id]), dev))
+    id_parity["s"] = time.perf_counter() - t0
     emit({"phase": "parity", **card, "max_abs_err": err, "cases": checked,
+          "id_functions": id_parity,
           "tolerance": "bit-identical (integer outputs)"})
     require(err["window_select"] == 0 and err["lex_topk_select"] == 0,
             "kernels bit-identical to their plain versions")
+    require(not any(id_parity["mismatches"].values()),
+            f"id functions equal the numpy oracle: {id_parity['mismatches']}")
 
     # -- 5. timing ---------------------------------------------------------
     cuda = dev.type == "cuda"

@@ -82,6 +82,18 @@ def ids_from_hashes(hashes) -> np.ndarray:
     return ids_from_bytes(b"".join(bytes(h) for h in hashes))
 
 
+def random_ids(generator: torch.Generator, n: int,
+               device=None) -> torch.Tensor:
+    """Uniformly random ids as an int32 key tensor [n, 5] on ``device``
+    (None = cuda), drawn from ``generator`` on its own device
+    (↔ InfoHash::getRandom, infohash.h:314-325).  Every int32 is a key,
+    so uniform keys are uniform ids."""
+    keys = torch.randint(-(1 << 31), 1 << 31, (n, N_LIMBS),
+                         dtype=torch.int32, generator=generator,
+                         device=generator.device)
+    return keys.to(resolve_device(device))
+
+
 # ---------------------------------------------------------------------------
 # numpy uint32 <-> key tensors
 # ---------------------------------------------------------------------------
@@ -128,6 +140,24 @@ def clz32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(u == 0, 32, n).to(torch.int32)
 
 
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit pattern (``x`` int32 holding raw bits).
+    int32."""
+    u = x.to(torch.int64) & 0xFFFFFFFF
+    u = u - ((u >> 1) & 0x55555555)
+    u = (u & 0x33333333) + ((u >> 2) & 0x33333333)
+    u = (u + (u >> 4)) & 0x0F0F0F0F
+    return ((u * 0x01010101) >> 24 & 0xFF).to(torch.int32)
+
+
+def ctz32(x: torch.Tensor) -> torch.Tensor:
+    """Trailing zeros of each 32-bit pattern (``x`` int32 holding raw
+    bits); 32 for 0.  int32."""
+    u = x.to(torch.int64) & 0xFFFFFFFF
+    # the bits below the lowest set bit (all 32 for 0)
+    return popcount32(~u & (u - 1))
+
+
 def common_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Length of the shared bit prefix of two key tensors [..., 5],
     0..160 (↔ Hash::commonBits, infohash.h:154-176).  int32 [...]."""
@@ -141,16 +171,42 @@ def common_bits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(nz.any(dim=-1), cb, ID_BITS)
 
 
-def lex_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a < b in lexicographic limb order, over key tensors [..., 5]."""
-    lt = torch.zeros(torch.broadcast_shapes(a.shape, b.shape)[:-1],
-                     dtype=torch.bool, device=a.device)
-    eq = torch.ones_like(lt)
-    for i in range(N_LIMBS):
+def _lex_fold(a: torch.Tensor, b: torch.Tensor):
+    """(lt, eq) of the lexicographic limb compare of key tensors
+    [..., 5] (broadcasts)."""
+    # limb 0 starts the fold: torch.broadcast_shapes imports sympy at
+    # its first call (~4 s on the H100 host, PERF.md §6)
+    lt, eq = a[..., 0] < b[..., 0], a[..., 0] == b[..., 0]
+    for i in range(1, N_LIMBS):
         ai, bi = a[..., i], b[..., i]
         lt = lt | (eq & (ai < bi))
         eq = eq & (ai == bi)
-    return lt
+    return lt, eq
+
+
+def lex_lt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < b in lexicographic limb order, over key tensors [..., 5]."""
+    return _lex_fold(a, b)[0]
+
+
+def lex_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a == b over key tensors [..., 5].  bool [...]."""
+    return (a == b).all(dim=-1)
+
+
+def lex_cmp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """memcmp-style -1/0/1 of key tensors [..., 5] (↔ Hash::cmp,
+    infohash.h:149-151).  int32 [...]."""
+    lt, eq = _lex_fold(a, b)
+    return torch.where(eq, 0, torch.where(lt, -1, 1)).to(torch.int32)
+
+
+def xor_cmp(self_id: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor) -> torch.Tensor:
+    """-1 if ``a`` is XOR-closer to ``self_id`` than ``b``, 1 farther, 0
+    tied (↔ Hash::xorCmp, infohash.h:179-194); key tensors [..., 5],
+    broadcasting over batch dims.  int32 [...]."""
+    return lex_cmp(xor_ids(a, self_id), xor_ids(b, self_id))
 
 
 # single-bit masks of a limb, bit 0 = the MSB, as int32 bit patterns (a

@@ -30,7 +30,9 @@ Its nodes run on the CUDA card unless ``--cpu`` is given; without a card
 (and without ``--cpu``) it raises before any socket is bound.
 
 The port's copy of the JAX package's ``testing/history_smoke.py``,
-behaviour unchanged but for the nodes' device.
+behaviour unchanged but for the nodes' device and the choke of step 2,
+which :func:`choke_ingest` makes in one pump of the node's DHT thread
+(the JAX copy's choke races the node's health tick: ROADMAP C.3).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from __future__ import annotations
 import json
 import sys
 import tempfile
+import threading
 import time
 
 from ..core.value import Value
@@ -64,6 +67,34 @@ def _wait(pred, timeout=30.0, step=0.05) -> bool:
             return True
         time.sleep(step)
     return pred()
+
+
+def choke_ingest(runner, keys, n: int, fails: list) -> None:
+    """Choke ``runner``'s ingest admission (``queue_max`` 0), issue
+    ``n`` gets over ``keys``, which it sheds at once (each appends its
+    ``ok`` to ``fails``), and record a history frame: all in one pump of
+    the runner's DHT thread, held while they are queued, so that no
+    health tick runs between the choke and the frame that holds the
+    failed gets.  (The JAX copy sets ``queue_max`` from the calling
+    thread and then posts the gets: a health tick in between reads the
+    ``ingest_queue`` signal live at 1.0, turns unhealthy and captures
+    its black-box bundle before any frame holds a failed get.)"""
+    wb = runner._dht.wave_builder
+    held, release = threading.Event(), threading.Event()
+
+    def hold(_dht):
+        held.set()
+        release.wait(30.0)
+    runner._post(hold, prio=True)
+    try:
+        assert held.wait(30.0), "the DHT thread never ran the hold op"
+        runner._post(lambda _dht: setattr(wb, "queue_max", 0))
+        for i in range(n):
+            runner.get(keys[i % len(keys)], lambda vals: True,
+                       lambda ok, ns: fails.append(ok))
+        runner._post(lambda _dht: runner._history.tick())
+    finally:
+        release.set()
 
 
 def ring_spill_bounded_check(factor: int = 10) -> None:
@@ -178,11 +209,8 @@ def main(argv=None) -> int:
             "unexpected pre-burn auto bundle"
         wb = runners[0]._dht.wave_builder
         saved_max = wb.queue_max
-        wb.queue_max = 0
         fails = []
-        for i in range(10):
-            runners[0].get(keys[i % N_KEYS], lambda vals: True,
-                           lambda ok, ns: fails.append(ok))
+        choke_ingest(runners[0], keys, 10, fails)
         assert _wait(lambda: len(fails) == 10), "shed gets never completed"
         assert not any(fails), "gets unexpectedly succeeded while choked"
         assert _wait(lambda: runners[0].get_health()["verdict"]

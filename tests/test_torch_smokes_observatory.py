@@ -36,6 +36,12 @@ of this file.
   a rerun loads what an earlier run compiled; the port's smoke runs
   once and must pass.  A case whose JAX reference passes in none of its
   runs fails: the port's lines are never held to ``REPORTS`` alone.
+- At most ``SMOKE_SLOTS`` smoke processes of these files run at once,
+  across the run's xdist workers (:func:`smoke_slot`): in a loaded run
+  of the whole suite under ``-n 6`` the JAX ``pipeline_smoke`` failed
+  all its attempts, and the port's ``history_smoke`` and
+  ``chaos_smoke`` their one run, each on a race that load widens
+  (ROADMAP C.3).
 - Two JAX copies fail on their own (ROADMAP C.3), and are pinned so:
   ``waterfall_smoke`` reads the stage key ``device_launch``, which the
   scraped exposition no longer carries (``KeyError: 'device_launch'``),
@@ -48,11 +54,15 @@ of this file.
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -63,6 +73,9 @@ REPO = Path(__file__).resolve().parents[1]
 SMOKE_S = 240
 #: runs of a JAX smoke until one passes (its timing gates on a loaded host)
 JAX_ATTEMPTS = 5
+#: smoke processes of these files that run at once, across every xdist
+#: worker of the run (file locks in the temporary directory)
+SMOKE_SLOTS = 2
 
 _JAX_CHILD = """
 import sys
@@ -89,11 +102,39 @@ sys.exit(rc)
 """
 
 
+@contextlib.contextmanager
+def smoke_slot():
+    """Hold one of ``SMOKE_SLOTS`` slots, shared by every process of the
+    test run through file locks, while a smoke process runs: the smoke
+    twins' files run side by side under ``-n 6 --dist loadfile``, and
+    each smoke process beside the others' made the smokes' timing gates
+    fail on a loaded host (ROADMAP C.3).  The wait for a slot is not
+    part of a smoke's ``SMOKE_S``."""
+    d = Path(tempfile.gettempdir()) / "opendht-tpu-smoke-slots"
+    d.mkdir(exist_ok=True)
+    while True:
+        for i in range(SMOKE_SLOTS):
+            f = open(d / f"slot{i}.lock", "w")
+            try:
+                fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            except OSError:
+                f.close()
+                continue
+            try:
+                yield i
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
+                f.close()
+            return
+        time.sleep(0.2)
+
+
 def run_smoke(pkg: str, name: str,
               cache=None) -> subprocess.CompletedProcess:
-    """``name``'s ``main`` in a fresh process: the JAX package's on the
-    CPU, its compiled programs kept in the directory ``cache`` for the
-    next run, or the port's with ``--cpu`` and no card visible."""
+    """``name``'s ``main`` in a fresh process, in a slot of its own
+    (:func:`smoke_slot`): the JAX package's on the CPU, its compiled
+    programs kept in the directory ``cache`` for the next run, or the
+    port's with ``--cpu`` and no card visible."""
     # one device and one XLA thread a program, as the JAX CI's own smoke
     # runs have one device (tests/conftest.py's eight virtual devices
     # stay in the test process)
@@ -105,8 +146,10 @@ def run_smoke(pkg: str, name: str,
         code = _PORT_CHILD.format(name=name)
     else:
         code = _JAX_CHILD.format(name=name, cache=str(cache))
-    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=SMOKE_S)
+    with smoke_slot():
+        return subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                              env=env, capture_output=True, text=True,
+                              timeout=SMOKE_S)
 
 
 def ok_lines(name: str, stdout: str) -> list:
@@ -245,8 +288,11 @@ def smoke_twin(name: str, cache) -> None:
     """Run ``name`` on both packages and hold them to each other (the
     module docstring); ``cache``: a directory for the JAX runs' compiled
     programs."""
+    tries = []      # each JAX run's exit code and last stderr line
     for _ in range(JAX_ATTEMPTS):
         jax = run_smoke("jax", name, cache)
+        tries.append((jax.returncode,
+                      (jax.stderr.strip().splitlines() or [""])[-1]))
         if jax.returncode == 0 or name == "waterfall_smoke":
             break
     port = run_smoke("port", name)
@@ -269,7 +315,7 @@ def smoke_twin(name: str, cache) -> None:
         assert jax.stderr.strip().splitlines()[-1].startswith(
             "AssertionError: (("), jax.stderr[-3000:]
     else:
-        assert jax.returncode == 0, jax.stderr[-3000:]
+        assert jax.returncode == 0, (tries, jax.stderr[-3000:])
     # the JAX copy's lines (the udp tier's alone after a raced pin)
     jax_lines = ok_lines(name, jax.stdout)
     assert jax_lines and report(jax_lines) \
@@ -407,3 +453,57 @@ def test_ledger_exports_read_the_port_fields():
     for name, e in entries.items():
         for fam, v in pmod.exported(e).items():
             assert gauges['dht_kernel_%s{kernel="%s"}' % (fam, name)] == v
+
+
+@pytest.mark.parametrize("order", ["jax", "port"])
+def test_history_smoke_choke_lands_in_a_frame_before_the_health_tick(order):
+    """``history_smoke``'s step 2 on one port runner whose health tick
+    runs at every pump and whose recorder never ticks on its own: in the
+    JAX copy's order (``queue_max`` set from the calling thread, then the
+    gets) the tick reads the live ``ingest_queue`` signal, turns
+    unhealthy and captures a bundle whose frames hold no failed get (the
+    port's run failed so in a loaded run of the whole suite: "burn not
+    visible in the bundle's frames", ROADMAP C.3); the port's
+    ``choke_ingest`` records the frame in the same pump as the choke and
+    the gets."""
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.runtime import Config, DhtRunner, RunnerConfig
+    _, H = _modules("history_smoke")
+    cfg = Config()
+    cfg.health.period = 0.01
+    cfg.history.period = 3600.0
+    r, peer = DhtRunner(), DhtRunner()
+    r.run(0, RunnerConfig(dht_config=cfg), device="cpu")
+    peer.run(0, device="cpu")
+    try:
+        peer.bootstrap("127.0.0.1", r.get_bound_port())
+        # not unhealthy: a transition to unhealthy captures the bundle
+        # (a loaded host may leave degrade-only signals degraded)
+        assert H._wait(lambda: r.get_health()["verdict"]
+                       in ("healthy", "degraded"), timeout=30), \
+            r.get_health()
+        pre = len(r.get_bundles())
+        # the recorder's baseline (its first tick records no frame)
+        ticked = []
+        r._post(lambda _dht: ticked.append(r._history.tick()), prio=True)
+        assert H._wait(lambda: ticked) and ticked == [None]
+        keys = [InfoHash.get("choke-%d" % i) for i in range(4)]
+        fails = []
+        if order == "jax":
+            r._dht.wave_builder.queue_max = 0
+            for i in range(10):
+                r.get(keys[i % 4], lambda vals: True,
+                      lambda ok, ns: fails.append(ok))
+        else:
+            H.choke_ingest(r, keys, 10, fails)
+        assert H._wait(lambda: len(fails) == 10
+                       and len(r.get_bundles()) > pre, timeout=30)
+        assert not any(fails)
+        bundle = r.get_bundles()[-1]
+        assert bundle["transition"]["to"] == "unhealthy"
+        burn = sum(f["counters"].get('dht_ops_total{ok="false",op="get"}', 0)
+                   for f in bundle["history"]["frames"])
+        assert burn == (0 if order == "jax" else 10), burn
+    finally:
+        r.join()
+        peer.join()

@@ -84,3 +84,59 @@ def test_waits_equal():
         for pred in (lambda: True, lambda: 0, lambda: [1]):
             assert pmod._wait(pred, timeout=0.05, step=0.01) \
                 == jmod._wait(pred, timeout=0.05, step=0.01)
+
+
+@pytest.mark.parametrize("order", ["jax", "port"])
+def test_chaos_smoke_baseline_clears_a_latched_stage_budget(order):
+    """``chaos_smoke``'s healthy baseline after a slow window (the port's
+    run failed it in a loaded run of the whole suite: verdict
+    ``degraded``, causes ``['stage_budget']``, the signal's value None;
+    ROADMAP C.3).
+    A window whose stage p95 passes its budget latches the degrade-only
+    ``stage_budget`` level, and a quiet node then makes no window of
+    enough samples to clear it: the JAX copy's read four ticks later
+    still finds it degraded; the port's ``healthy_baseline`` gets until
+    fresh samples clear it.  The stage budgets are raised to 10 s for
+    both nodes, so that the samples of this host's load, whatever it is,
+    fall under them and only the injected 100 s samples trip them."""
+    import time
+    from opendht_tpu_torch import waterfall
+    from opendht_tpu_torch.runtime import Config, DhtRunner, RunnerConfig
+    _, C = _modules("chaos_smoke")
+    tick = C.TICK
+    budgets = {s: 10.0 for s in waterfall.STAGES}
+    cfg = Config()
+    cfg.health.period = tick
+    cfg.history.period = tick
+    cfg.waterfall.budgets = budgets
+    quiet = Config()
+    quiet.health.period = 0          # one evaluator reads the windows
+    quiet.waterfall.budgets = budgets
+    r, peer = DhtRunner(), DhtRunner()
+    r.run(0, RunnerConfig(dht_config=cfg), device="cpu")
+    peer.run(0, RunnerConfig(dht_config=quiet), device="cpu")
+    try:
+        peer.bootstrap("127.0.0.1", r.get_bound_port())
+        assert C._wait(lambda: r.get_status().name
+                       == peer.get_status().name == "CONNECTED")
+        assert C._wait(lambda: r.get_health()["verdict"] == "healthy"), \
+            r.get_health()
+        prof = waterfall.get_profiler()
+        assert prof.budgets == budgets
+        for _ in range(8):
+            prof.observe("queue_wait", 100.0)
+        assert C._wait(lambda: r.get_health()["signals"]["stage_budget"]
+                       ["level"] == "degraded"), r.get_health()
+        if order == "jax":
+            time.sleep(4 * tick)
+            health = r.get_health()
+            assert health["verdict"] == "degraded", health
+            assert health["causes"] == ["stage_budget"]
+            assert health["signals"]["stage_budget"]["unknown"]
+        else:
+            health = C.healthy_baseline(r)
+            assert health["verdict"] == "healthy", health
+    finally:
+        r.join()
+        peer.join()
+        waterfall.get_profiler().configure(waterfall.WaterfallConfig())
