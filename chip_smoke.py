@@ -408,6 +408,45 @@ Phases, one JSON line each:
              not failed (a 3-node table resolves on the host).  Each
              child's output is kept in smokes/<name>.<pass>.out and
              .err in the smoke-record directory.
+22. hops   — (run after search, in a process of its own: a 2,048-node
+             net adds ~66,000 series to the process's metrics registry)
+             tests/test_hop_parity.py's acceptance checks on the card: a
+             VirtualNet() of --hops-n (2,048) nodes with its tables on
+             the card, converged by seed_converged, and HOPS_LOOKUPS (6)
+             cold-start gets by fresh observers bootstrapped from one
+             seed node, under one seeded os.urandom / random stream
+             (SeededStreams).  Checks: every get completes; live depth
+             + 1 within one round of the batched simulator's p50
+             (simulate_lookups on the card, α=4, k=8: HOPS_SIM_TARGETS
+             (512) targets over a table of the net's size, both from
+             np.random.default_rng(3)),
+             which may not undercut it by more than half a round; the
+             recall median of the true closest 8 ≥ 7.  Prints the
+             hops, recalls and virtual seconds, the simulator's p50 and
+             p95 beside the search phase's 10M-id p50 (α=3), the card's
+             MiB (the allocator's, with the net alive, its peak, and
+             nvidia-smi's) and the seconds of each leg.
+23. hops_ladder — (only when --phases names it: a call of its own) the
+             hops phase's checks, and one more, at --hops-n and at
+             --hops-ladder (8,192, 16,384 and 32,768 nodes, the JAX
+             test's slow tier), one line a size: the same gets on a
+             VirtualNet(device="cpu") built in turn in the same process
+             give the same hops, recall and first 8 ids (this leg left
+             the full run when it printed the ok line past 620 s).
+24. soak   — (only when --phases names it: a call of its own)
+             tests/test_soak.py's cluster soak on the card: SOAK_STABLE
+             (4) runners and a churner (DhtRunner().run(0) on the card)
+             under puts, gets, three standing listeners and a churn every
+             max(8, secs/6) s for --soak-secs (60) wall seconds.  The
+             test's checks (work done, listeners fired, reassembly
+             buffers drained, no listener record left after cancel,
+             scheduler heaps < 1,500 + 20 a put, RSS growth after
+             warm-up < 120 MiB + 0.25 a put) and one of the card: the
+             allocator's bytes, sampled once a second after warm-up, in
+             the last third at most the first third's maximum +
+             SOAK_CUDA_SLACK (16 MiB).  Also no ERROR record and no
+             plane gone dark; prints RSS, allocated bytes, the heaps and
+             the packets dropped for their delay.
 
 The smoke-record directory is $OPENDHT_TPU_SMOKE_RECORD_DIR, else
 build/smoke_records beside this script: ``python -m
@@ -420,7 +459,8 @@ with the plain versions and also ends without the ok line, as does a
 partial run (``--phases`` with a comma-separated list of late phases,
 e.g. ``--phases ledger,swarm``: phases 1-7, then only those).  The
 full run (``--phases all``, the default) runs every late phase but
-those of CALL_OF_ITS_OWN (smokes), which run only when named.
+those of CALL_OF_ITS_OWN (smokes, hops_ladder, soak), which run only
+when named.
 """
 
 from __future__ import annotations
@@ -431,6 +471,7 @@ import hashlib
 import json
 import logging
 import os
+import random
 import re
 import socket
 import statistics
@@ -459,12 +500,12 @@ RUNNER_VALUES = 64
 # of the small cluster
 WHERE_IDS = (11, 12, 13)
 # the phases after main, in their order; --phases picks some of them
-LATE_PHASES = ("search", "maintenance", "churn", "serve", "runner",
+LATE_PHASES = ("search", "hops", "maintenance", "churn", "serve", "runner",
                "proxy", "monitor", "cluster", "planes", "scale", "ledger",
-               "swarm", "bench", "smokes")
+               "swarm", "bench", "smokes", "hops_ladder", "soak")
 # late phases that the full run leaves out: each runs only when --phases
 # names it, in a call of its own (the full run's time, PERF.md §4)
-CALL_OF_ITS_OWN = ("smokes",)
+CALL_OF_ITS_OWN = ("smokes", "hops_ladder", "soak")
 
 
 def emit(obj) -> None:
@@ -699,11 +740,12 @@ def golden_hashes(dev) -> dict:
     return hashes
 
 
-def search_phase(args, dev, card, sync) -> None:
+def search_phase(args, dev, card, sync) -> dict:
     """BASELINE config 3: ``--search-waves`` waves of ``--search-q``
     lookups at α=3, k=8, state_limbs=2 against ``--search-n`` seeded ids
     sorted on the device, with the LUT at default_lut_bits(N); checks,
-    timing and a per-round profile (see the module docstring)."""
+    timing and a per-round profile (see the module docstring).  Returns
+    its hops' p50 and p95 and its table's size."""
     import torch
     from opendht_tpu_torch.core import search as SE
     from opendht_tpu_torch.ops import ids as IK
@@ -838,6 +880,9 @@ def search_phase(args, dev, card, sync) -> None:
                       "stages": stages,
                       "top_ops": [{"name": e.key, "calls": e.count,
                                    "self_ms": ms(e, True)} for e in ops]}})
+    return {"n": N, "alpha": CONFIG3["alpha"], "k": CONFIG3["k"],
+            "p50": float(np.percentile(hops, 50)),
+            "p95": float(np.percentile(hops, 95))}
 
 
 def clz32_np(x: np.ndarray) -> np.ndarray:
@@ -2708,13 +2753,13 @@ def jax_modules(mods) -> list:
 
 
 def phase_in_child(name: str, args, card):
-    """Run the late phase ``name`` (proxy, monitor, cluster, smokes) in a
-    process of its own, as a server runs: a fresh interpreter, heap and
-    metrics registry, none of what the earlier phases left (their nodes'
-    per-peer series alone are ~22,000, and each history tick of a node
-    walks every series on its thread).  Passes its output lines on;
-    returns its window_select launches (the smokes phase: both select
-    kernels', by name)."""
+    """Run the late phase ``name`` (proxy, monitor, cluster, smokes, hops,
+    hops_ladder, soak) in a process of its own, as a server runs: a
+    fresh interpreter, heap and metrics registry, none of what the
+    earlier phases left (their nodes' per-peer series alone are ~22,000,
+    and each history tick of a node walks every series on its thread).  Passes its output lines on;
+    returns its window_select launches (the smokes, hop and soak phases:
+    both select kernels', by name)."""
     here = str(Path(__file__).resolve().parent)
     code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
             "sys.exit(chip_smoke.phase_child())" % here)
@@ -2738,7 +2783,9 @@ def phase_child() -> int:
     phase's name, the script's arguments and the card record, as JSON."""
     import torch
     phase = {"proxy": proxy_phase, "monitor": monitor_phase,
-             "cluster": cluster_phase, "smokes": smokes_phase}[sys.argv[1]]
+             "cluster": cluster_phase, "smokes": smokes_phase,
+             "hops": hops_phase, "hops_ladder": hops_ladder_phase,
+             "soak": soak_phase}[sys.argv[1]]
     args = argparse.Namespace(**json.loads(sys.argv[2]))
     card = json.loads(sys.argv[3])
     if args.cpu:
@@ -3575,6 +3622,26 @@ def monitor_phase(args, dev, card, sync) -> int:
                 "probe_ms": probe_ms,
                 "probe_device": device_totals(prof, cuda)}
 
+            # the CLI's report, before the link drops: the 16 gets that
+            # the drop leg lets expire count in the process-wide
+            # dht_ops_total series that every node's get-availability
+            # SLO reads, and a scrape after them found all 16 nodes
+            # unhealthy
+            cli_out = finish("dhtmon", cli, rcs=(0, 1))
+            require(cli_out["doc"] is not None
+                    and len(cli_out["doc"]["nodes"]) == n
+                    and (cli_out["rc"] == 1) == bool(
+                        cli_out["doc"]["violations"]),
+                    f"the dhtmon CLI's report: {cli_out['doc']}")
+            require(not cli_out["jax_modules"], "the dhtmon child loaded no "
+                    f"JAX: {cli_out['jax_modules']}")
+            if cuda:
+                require(cli_out["rc"] == 0, "the dhtmon CLI exited 0: "
+                        f"{cli_out['doc']['violations']}")
+            legs["dhtmon_cli"] = {"rc": cli_out["rc"], "nodes": n,
+                                  "jax_modules": cli_out["jax_modules"],
+                                  "s": time.perf_counter() - t_cli}
+
             # ---- (d) one directed link dropped: the wire map finds it --
             t0 = time.perf_counter()
             ia, ib = (int(i) for i in rng.choice(np.arange(1, n), 2,
@@ -3632,21 +3699,6 @@ def monitor_phase(args, dev, card, sync) -> int:
                                 "events": len(tl["events"]),
                                 "violations": tl["violations"],
                                 "s": time.perf_counter() - t0}
-
-            # the CLI's report (before any node is shut down)
-            cli_out = finish("dhtmon", cli, rcs=(0, 1))
-            require(cli_out["doc"] is not None
-                    and len(cli_out["doc"]["nodes"]) == n
-                    and (cli_out["rc"] == 1) == bool(
-                        cli_out["doc"]["violations"]),
-                    f"the dhtmon CLI's report: {cli_out['doc']}")
-            require(not cli_out["jax_modules"], "the dhtmon child loaded no "
-                    f"JAX: {cli_out['jax_modules']}")
-            if cuda:
-                require(cli_out["rc"] == 0, "the dhtmon CLI exited 0")
-            legs["dhtmon_cli"] = {"rc": cli_out["rc"], "nodes": n,
-                                  "jax_modules": cli_out["jax_modules"],
-                                  "s": time.perf_counter() - t_cli}
 
             # ---- (c) again: two nodes removed, coverage must fall -------
             t0 = time.perf_counter()
@@ -4265,6 +4317,384 @@ def smokes_phase(args, dev, card, sync) -> dict:
     require(not darkened, f"no plane went dark: {darkened}")
     require(not jaxed, f"no smoke loaded JAX: {jaxed}")
     return launches
+
+
+# ---- the hop phases (phases 22-23) and the soak (phase 24) --------------
+# cold-start gets of the hops phase and of each hops_ladder point (the
+# JAX acceptance test's at-scale count, tests/test_hop_parity.py)
+HOPS_LOOKUPS = 6
+# lookups of the batched simulator beside them (the test's sim_hops)
+HOPS_SIM_TARGETS = 512
+# the seed of the patched os.urandom stream and of random, each net
+HOPS_STREAM_SEED = 11
+# the soak's stable runners (tests/test_soak.py N_STABLE), and how far
+# the card's allocated bytes in the soak's last third may pass its first
+SOAK_STABLE = 4
+SOAK_CUDA_SLACK = 16 * 2**20
+
+
+class SeededStreams:
+    """While open: ``random`` seeded, and ``os.urandom`` and
+    ``random._urandom`` (which ``secrets``, and so a node's random id,
+    draws through) one seeded stream, so nets built in turn get the same
+    node ids and write tokens."""
+
+    def __enter__(self):
+        self._saved = (os.urandom, random._urandom)
+        random.seed(HOPS_STREAM_SEED)
+        rng = random.Random(HOPS_STREAM_SEED ^ 0x5EED)
+
+        def urandom(n):
+            return bytes(rng.getrandbits(8) for _ in range(n))
+        os.urandom = random._urandom = urandom
+        return self
+
+    def __exit__(self, *exc):
+        os.urandom, random._urandom = self._saved
+
+
+def live_cold_start(n_nodes: int, n_lookups: int, device,
+                    seed: int = 7) -> dict:
+    """tests/test_hop_parity.py's cold start on the port, seeded
+    convergence: ``n_nodes`` nodes of a ``VirtualNet(device=)`` get their
+    converged tables from ``seed_converged``, then ``n_lookups`` fresh
+    observers, each bootstrapped from the first node only, get a target
+    of ``random.Random(seed)`` at once.  Per get: its discovery depth
+    (``current_hops``), its recall of the true closest 8 and the first 8
+    ids it found.  Under :class:`SeededStreams` (the port's modules are
+    imported first: a first import draws from the streams), so two runs
+    on two devices build the same nodes.  The collector is off
+    meanwhile: its full passes over the growing net took ~27 % of a
+    2,048-node run on the host, and the caller collects once the net is
+    dropped."""
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.testing import VirtualNet
+    rng = random.Random(seed)
+    t0 = time.perf_counter()
+    gc.disable()
+    try:
+        with SeededStreams():
+            net = VirtualNet(device=device)
+            seed_node = net.add_node()
+            for _ in range(n_nodes - 1):
+                net.add_node()
+            net.seed_converged()
+            build_s = time.perf_counter() - t0
+            ids = np.stack([np.frombuffer(bytes(d.get_node_id()),
+                                          np.uint8)
+                            for d in net.nodes.values()])
+            lookups = []
+            for _ in range(n_lookups):
+                obs = net.add_node()
+                net.bootstrap_node(obs, seed_node)
+                target = InfoHash(bytes(rng.getrandbits(8)
+                                        for _ in range(20)))
+                done, t_get = {}, net.clock
+                obs.get(target, lambda vals: True,
+                        lambda ok, ns: done.update(ok=ok, t=net.clock))
+                require(net.run(60, lambda: "ok" in done),
+                        f"a cold-start get over {n_nodes} nodes completed")
+                sr = obs._searches_of(socket.AF_INET).get(target)
+                hops = sr.current_hops()
+                require(hops is not None, "a candidate of the get replied")
+                x = (ids ^ np.frombuffer(bytes(target), np.uint8)) \
+                    .view(">u4").reshape(-1, 5)
+                true8 = {ids[i].tobytes()
+                         for i in np.lexsort(x.T[::-1])[:8]}
+                found = [bytes(sn.node.id) for sn in sr.nodes[:8]]
+                lookups.append({"hops": hops, "ok": done["ok"],
+                                "recall": len(set(found) & true8),
+                                "found": [f.hex() for f in found],
+                                "virtual_s": round(done["t"] - t_get, 9)})
+                net.remove_node(obs)
+    finally:
+        gc.enable()
+    return {"lookups": lookups, "net": net, "build_s": build_s,
+            "s": time.perf_counter() - t0}
+
+
+def sim_hops(n_nodes: int, n_lookups: int, dev, sync, seed: int = 3) -> dict:
+    """The batched engine (α = 4, k = 8) on ``dev`` over a table and
+    targets of ``np.random.default_rng(seed)``: the hop counts."""
+    from opendht_tpu_torch.core.search import simulate_lookups
+    from opendht_tpu_torch.ops import ids as IK
+    from opendht_tpu_torch.ops.sorted_table import sort_table
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 2**32, size=(n_nodes, 5), dtype=np.uint32)
+    targets = rng.integers(0, 2**32, size=(n_lookups, 5), dtype=np.uint32)
+    t0 = time.perf_counter()
+    sorted_ids, _perm, n_valid = sort_table(IK.to_keys(table, dev))
+    out = simulate_lookups(sorted_ids, n_valid, IK.to_keys(targets, dev),
+                           device=dev)
+    hops = out["hops"].cpu().numpy()
+    sync()
+    require(bool(out["converged"].all()), "every simulated lookup converged")
+    return {"n": n_nodes, "targets": n_lookups,
+            "p50": float(np.median(hops)),
+            "p95": float(np.percentile(hops, 95)), "max": int(hops.max()),
+            "host_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def hops_point(n_nodes: int, dev, sync, cpu_twin: bool = True) -> dict:
+    """One size of the hop checks: the cold start on ``dev``, the
+    simulator beside it and, with ``cpu_twin``, the same gets on a CPU
+    net (see the module docstring, phases 22-23)."""
+    import torch
+    cuda = dev.type == "cuda"
+    if cuda:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        alloc0 = torch.cuda.memory_allocated()
+    run = live_cold_start(n_nodes, HOPS_LOOKUPS, dev)
+    mem = "not measured"
+    if cuda:
+        sync()
+        mem = {"allocated_mib": (torch.cuda.memory_allocated() - alloc0)
+               / 2**20,
+               "peak_mib": (torch.cuda.max_memory_allocated() - alloc0)
+               / 2**20,
+               "card_used_mib": card_used_mib()}
+    del run["net"]
+    gc.collect()
+    live = run.pop("lookups")
+    hops, recall = [g["hops"] for g in live], [g["recall"] for g in live]
+    sim = sim_hops(n_nodes, HOPS_SIM_TARGETS, dev, sync)
+    rounds = float(np.median(hops)) + 1           # depth → query rounds
+    rec = {"n": n_nodes, "lookups": len(live), "hops": hops,
+           "recall": recall, "virtual_s": [g["virtual_s"] for g in live],
+           "every_get_ok": all(g["ok"] for g in live),
+           "live_rounds_p50": rounds, "sim": sim,
+           "build_s": run["build_s"], "live_s": run["s"], "card_mib": mem,
+           "cpu_twin": "in the hops_ladder call"}
+    require(abs(sim["p50"] - rounds) <= 1.0,
+            f"N={n_nodes}: sim p50 {sim['p50']} within 1 of live rounds "
+            f"{rounds} ({hops})")
+    require(sim["p50"] >= rounds - 0.5,
+            f"N={n_nodes}: the simulator does not undercut live rounds")
+    require(float(np.median(recall)) >= 7,
+            f"N={n_nodes}: recall median >= 7 ({recall})")
+    if cpu_twin:
+        t0 = time.perf_counter()
+        cpu = live_cold_start(n_nodes, HOPS_LOOKUPS, torch.device("cpu"))
+        del cpu["net"]
+        gc.collect()
+        same = [(g["hops"], g["recall"], g["found"]) for g in live] == [
+            (g["hops"], g["recall"], g["found"]) for g in cpu["lookups"]]
+        rec["cpu_twin"] = {"equal": same, "s": time.perf_counter() - t0,
+                           "hops": [g["hops"] for g in cpu["lookups"]]}
+        require(same, f"N={n_nodes}: the gets on a CPU net gave the same "
+                f"hops, recall and found ids: {rec['cpu_twin']['hops']} vs "
+                f"{hops}")
+    return rec
+
+
+def _select_launches() -> dict:
+    from opendht_tpu_torch.ops.lex_select import lex_topk_select
+    from opendht_tpu_torch.ops.window_select import window_select
+    return {"window_select": window_select.launches,
+            "lex_topk_select": lex_topk_select.launches}
+
+
+def _zero_select_launches() -> None:
+    from opendht_tpu_torch.ops.lex_select import lex_topk_select
+    from opendht_tpu_torch.ops.window_select import window_select
+    window_select.launches = lex_topk_select.launches = 0
+
+
+def hops_phase(args, dev, card, sync) -> dict:
+    """Hop parity on the card (see the module docstring, phase 22).
+    Returns the select kernels' launches."""
+    t_phase = time.perf_counter()
+    _zero_select_launches()
+    # the CPU net's leg runs in the hops_ladder call: the full run with
+    # it printed the ok line at 632 s on an H100 80GB HBM3 at 700 W,
+    # past the 620 s it may take
+    rec = hops_point(args.hops_n, dev, sync, cpu_twin=False)
+    launches = _select_launches()
+    emit({"phase": "hops", **card, **rec,
+          "search_phase_hops": args.search_hops or "not run in this call",
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def hops_ladder_phase(args, dev, card, sync) -> dict:
+    """The hop checks with the CPU net's leg at the hops phase's size and
+    at the JAX test's slow sizes (see the module docstring, phase 23),
+    one line a size.  Returns the select kernels' launches."""
+    _zero_select_launches()
+    for n in [args.hops_n] + [int(s) for s in args.hops_ladder.split(",")]:
+        t0 = time.perf_counter()
+        rec = hops_point(n, dev, sync)
+        emit({"phase": "hops_ladder", **card, **rec,
+              "point_s": time.perf_counter() - t0})
+    return _select_launches()
+
+
+def _rss_mib() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return 0.0
+
+
+def soak_phase(args, dev, card, sync) -> dict:
+    """tests/test_soak.py's cluster soak on the card (see the module
+    docstring, phase 24).  Returns the select kernels' launches."""
+    import torch
+    from opendht_tpu_torch.core.value import Value
+    from opendht_tpu_torch.infohash import InfoHash
+    from opendht_tpu_torch.runtime.config import NodeStatus
+    from opendht_tpu_torch.runtime.runner import DhtRunner
+    import concurrent.futures
+    cuda = dev.type == "cuda"
+    secs = args.soak_secs
+    t_phase = time.perf_counter()
+    _zero_select_launches()
+    runners = []
+
+    def spawn(bootstrap_port=None):
+        r = DhtRunner()
+        r.run(0, device=dev)
+        if bootstrap_port:
+            r.bootstrap("127.0.0.1", bootstrap_port)
+        runners.append(r)
+        return r
+
+    def heap(r):
+        return len(r._dht._dht.scheduler._heap)
+
+    stats = {"puts": 0, "gets": 0, "listen_hits": 0, "churned": 0,
+             "get_misses": 0, "op_timeouts": 0}
+    alloc = []                           # (s since the soak began, bytes)
+    stop = threading.Event()
+    rss0, sched_max = None, 0
+    with PortRecords() as records:
+        try:
+            hub = spawn()
+            for _ in range(SOAK_STABLE - 1):
+                spawn(hub.get_bound_port())
+            require(_wait(lambda: all(r.get_status() is NodeStatus.CONNECTED
+                                      for r in runners[1:]), 30),
+                    "the soak cluster connected")
+            listen_keys = [InfoHash.get(f"soak-listen-{i}") for i in range(3)]
+            tokens = [runners[1].listen(key, lambda vals, exp: (
+                stats.__setitem__("listen_hits",
+                                  stats["listen_hits"] + len(vals)) or True))
+                for key in listen_keys]
+            churner = spawn(hub.get_bound_port())
+            rng = np.random.default_rng(17)
+            put_keys = []
+            gc.collect()
+            start = time.monotonic()
+            warm_end = start + min(10.0, secs * 0.25)
+            t_end = start + secs
+            next_churn = start + max(8.0, secs / 6)
+
+            def sample():
+                # the card's allocated bytes once a second from warm-up on
+                while not stop.wait(1.0):
+                    if time.monotonic() >= warm_end:
+                        alloc.append((time.monotonic() - start,
+                                      torch.cuda.memory_allocated()))
+            sampler = threading.Thread(target=sample, daemon=True)
+            if cuda:
+                sampler.start()
+            i = 0
+            while time.monotonic() < t_end:
+                i += 1
+                key = (listen_keys[i % 3] if i % 5 == 0
+                       else InfoHash.get(f"soak-{i}"))
+                src = runners[1 + (i % (len(runners) - 1))]
+                try:
+                    if src.put_sync(key, Value(b"soak-%d" % i), timeout=20.0):
+                        stats["puts"] += 1
+                        put_keys.append(key)
+                except (TimeoutError, concurrent.futures.TimeoutError):
+                    stats["op_timeouts"] += 1
+                if put_keys and i % 3 == 0:
+                    k = put_keys[int(rng.integers(0, len(put_keys)))]
+                    try:
+                        vals = hub.get_sync(k, timeout=20.0)
+                        stats["gets"] += 1
+                        stats["get_misses"] += not vals
+                    except (TimeoutError, concurrent.futures.TimeoutError):
+                        stats["op_timeouts"] += 1
+                if time.monotonic() >= next_churn:
+                    churner.join()
+                    runners.remove(churner)
+                    churner = spawn(hub.get_bound_port())
+                    stats["churned"] += 1
+                    next_churn = time.monotonic() + max(8.0, secs / 6)
+                if time.monotonic() >= warm_end:
+                    if rss0 is None:
+                        gc.collect()
+                        rss0 = _rss_mib()
+                    sched_max = max(sched_max, *(heap(r) for r in runners))
+            stop.set()
+            if cuda:
+                sampler.join()
+            for key, tok in zip(listen_keys, tokens):
+                runners[1].cancel_listen(key, tok)
+            time.sleep(2.0)
+            gc.collect()
+            rss_end = _rss_mib()
+            drained = [_wait(lambda d=r._dht._dht: len(d.engine._partials)
+                             == 0, 15.0) for r in runners]
+            listeners_left = len(runners[1]._listeners)
+            heaps = [heap(r) for r in runners]
+        finally:
+            stop.set()
+            for r in runners:
+                try:
+                    r.join()
+                except Exception:
+                    pass
+    growth = rss_end - rss0 if rss0 else 0.0
+    rss_limit = 120.0 + 0.25 * stats["puts"]
+    sched_limit = 1500 + 20 * stats["puts"]
+    third = len(alloc) // 3
+    first = max((b for _, b in alloc[:third]), default=0)
+    last = max((b for _, b in alloc[-third:]), default=0) if third else 0
+    emit({"phase": "soak", **card, "secs": secs,
+          "nodes": len(runners), **stats,
+          "rss_mib": {"after_warmup": rss0, "end": rss_end,
+                      "growth": growth, "limit": rss_limit},
+          "sched_heap": {"max": sched_max, "limit": sched_limit,
+                         "end": heaps},
+          "partials_drained": all(drained), "listeners_left": listeners_left,
+          "cuda_allocated": ({"samples": len(alloc),
+                              "first_third_max": first,
+                              "last_third_max": last,
+                              "bound": first + SOAK_CUDA_SLACK,
+                              "min": min(b for _, b in alloc),
+                              "max": max(b for _, b in alloc),
+                              # every fifth sample: (s, bytes)
+                              "series": [(round(t, 1), b)
+                                         for t, b in alloc[::5]]}
+                             if cuda and alloc else "not measured"),
+          "delay_drops": len(records.delay_drops),
+          "error_records": len(records.errors), "dark": records.dark[:3],
+          "launches": _select_launches(),
+          "phase_s": time.perf_counter() - t_phase})
+    require(stats["puts"] > 0 and stats["gets"] > 0,
+            f"the soak did work: {stats}")
+    require(stats["listen_hits"] > 0, "the standing listeners fired")
+    require(all(drained), "every engine's reassembly buffer drained")
+    require(listeners_left == 0, "no listener record left after cancel")
+    require(sched_max < sched_limit,
+            f"scheduler heaps bounded: max {sched_max} over "
+            f"{stats['puts']} puts")
+    require(growth < rss_limit, f"RSS grew {growth:.1f} MiB (limit "
+            f"{rss_limit:.0f})")
+    require(not records.errors and not records.dark,
+            "no ERROR record and no plane gone dark")
+    if cuda:
+        require(third >= 3, f"{len(alloc)} allocation samples after warm-up")
+        require(last <= first + SOAK_CUDA_SLACK,
+                f"the card's allocated bytes did not climb: last third "
+                f"max {last}, first third max {first}")
+    return _select_launches()
 
 
 # Requests the planes phase's put client keeps unanswered (the node
@@ -5568,6 +5998,12 @@ def main(argv=None) -> int:
                     help="queries of the scale phase's lookups")
     ap.add_argument("--swarm-n", type=int, default=50_000,
                     help="nodes of the swarm phase's storm arc")
+    ap.add_argument("--hops-n", type=int, default=2048,
+                    help="nodes of the hops phase's virtual net")
+    ap.add_argument("--hops-ladder", default="8192,16384,32768",
+                    help="comma-separated net sizes of the hops_ladder call")
+    ap.add_argument("--soak-secs", type=float, default=60.0,
+                    help="wall seconds of the soak call's load")
     ap.add_argument("--smokes", default=",".join(SMOKES),
                     help="comma-separated smokes of the smokes phase "
                          "(default: all " + str(len(SMOKES)) + ")")
@@ -5890,8 +6326,15 @@ def main(argv=None) -> int:
                 f"find_closest k=16 allocated {peak_extra} B at peak, not "
                 f"below the {gathered_bytes} B of gathered rows")
 
+    # the search phase's 10M-id hops, printed beside the hops phase's
+    args.search_hops = None
     if late("search"):
-        search_phase(args, dev, card, sync)
+        args.search_hops = search_phase(args, dev, card, sync)
+    if late("hops"):
+        # a process of its own: a 2,048-node net adds ~66,000 series to
+        # the metrics registry that the later nodes' ticks walk
+        for name, n in phase_in_child("hops", args, card).items():
+            launches[name] += n
     if late("maintenance"):
         maintenance_phase(args, dev, card)
     if late("churn"):
@@ -5934,10 +6377,12 @@ def main(argv=None) -> int:
         swarm_phase(args, dev, card, sync)
     if late("bench"):
         bench_phase(args, dev, card)
-    if late("smokes"):
-        # the smoke children's select kernel launches join the count
-        for name, n in phase_in_child("smokes", args, card).items():
-            launches[name] += n
+    for name in CALL_OF_ITS_OWN:
+        if late(name):
+            # the smoke children's, the ladder's and the soak's select
+            # kernel launches join the count
+            for kernel, n in phase_in_child(name, args, card).items():
+                launches[kernel] += n
 
     kernels = []
     for name, src_line in (("window_select",

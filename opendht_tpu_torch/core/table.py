@@ -1082,11 +1082,14 @@ class NodeTable:
         return np.nonzero(occupied & (last < now - age))[0]
 
     def _next_maint_generator(self) -> torch.Generator:
-        """The table's reusable maintenance generator, seeded once."""
+        """The table's reusable maintenance generator, seeded once from
+        four bytes of ``os.urandom``, as many as the JAX table's key
+        takes: a node's later draws of that stream (the ids of nodes
+        made after it, write tokens) then match the JAX node's."""
         if self._maint_gen is None:
             self._maint_gen = torch.Generator(device=self.device)
             self._maint_gen.manual_seed(
-                int.from_bytes(os.urandom(8), "big"))
+                int.from_bytes(os.urandom(4), "big"))
         return self._maint_gen
 
     def maintenance_sweep(self, now: float, age: float = NODE_EXPIRE_TIME,

@@ -6,10 +6,20 @@ included): every golden packet is emitted byte for byte and parsed back,
 and the scripted two-engine conversations (fragmented announce and get,
 the six error codes, the ``sa`` echo, the netid drop, listen u-packets)
 replay with the same transcripts.  The goldens come from the independent
-spec encoder tests/goldens/mini_msgpack.py.  A last group runs one
-port engine and one JAX engine back to back, in both roles.
+spec encoder tests/goldens/mini_msgpack.py.  A group runs one port
+engine and one JAX engine back to back, in both roles.
+
+Every case of tests/test_net_node.py (liveness boundaries, tid
+generation, the request seams) and tests/test_net_engine.py (the RPC
+matrix over its two-engine switch, retries, rate limits, martians,
+fragments, the node cache) runs on both packages, as the JAX file is
+written and with its imports read as the port's, after the same seeded
+``random`` stream (transaction ids): both pass the case's assertions,
+and every call the case makes into ``net/`` returns the same result in
+the same order.
 """
 
+import inspect
 import os
 
 import pytest
@@ -24,6 +34,8 @@ from opendht_tpu_torch.net.parsed_message import MessageType, ParsedMessage
 from opendht_tpu_torch.net.request import RequestState
 from opendht_tpu_torch.scheduler import Scheduler
 from opendht_tpu_torch.sockaddr import SockAddr
+from test_torch_storage import (case_calls, case_names, jax_case_namespace,
+                                seed_streams)
 
 
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
@@ -637,3 +649,31 @@ def test_mixed_listen_and_u_packets(pkg_a, pkg_b):
     assert p.b_out == [golden("listen_refreshed_u"),
                        golden("listen_expired_u")]
     assert [m.refreshed_values for m in pushed] == [[42, 43], []]
+
+
+# ------------------------------ tests/test_net_node.py, test_net_engine.py
+NET_FILES = ("net/engine.py", "net/parsed_message.py", "net/node_cache.py",
+             "net/node.py", "net/request.py")
+NET_CASES = [(f, n) for f in ("test_net_node.py", "test_net_engine.py")
+             for n in case_names(f)]
+
+
+def test_every_net_case_is_twinned():
+    assert len(NET_CASES) == 12 + 19
+
+
+@pytest.mark.parametrize("fname,name", NET_CASES,
+                         ids=["%s::%s" % c for c in NET_CASES])
+def test_jax_net_case_twin(fname, name, monkeypatch):
+    recs = []
+    for pkg in ("jax", "port"):
+        ns = jax_case_namespace(fname, pkg)
+        case = ns[name]
+        # tests/test_net_engine.py's ``net`` fixture is a fresh ``Net()``
+        kw = ({"net": ns["Net"]()}
+              if "net" in inspect.signature(case).parameters else {})
+        with monkeypatch.context() as m:
+            seed_streams(m, 5)
+            recs.append(case_calls(case, kw, pkg, fname, NET_FILES))
+    assert recs[0], "the case reached no traced function"
+    assert recs[1] == recs[0]

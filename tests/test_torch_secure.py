@@ -11,12 +11,23 @@
   same identities (the port's carried by ``convert.identity_from_jax``),
   with the same results.
 - ``convert.identity_from_jax`` for RSA, EC and CA-signed identities.
+- Every case of tests/test_crypto.py (the reference's cryptotester.cpp
+  suite and the serialization / KDF helpers), each parametrized value
+  apart, on both packages: as the JAX file is written and with its
+  imports read as the port's, each with identities of its own package.
+  Both pass the case's assertions and make the same calls into
+  ``crypto.py`` in the same order.  Keys, signatures, ciphertexts, salts
+  and serial numbers come from OpenSSL's random source, which neither
+  package seeds, so a call's result is compared whole where no random
+  draw reaches it (booleans, None, numbers, ``hash_data``, names) and
+  by its type elsewhere (:func:`crypto_view`).
 """
 
 from __future__ import annotations
 
 import heapq
 import importlib
+import inspect
 import itertools
 import random
 
@@ -25,6 +36,7 @@ import pytest
 from opendht_tpu import crypto as jcrypto
 from opendht_tpu_torch import convert
 from opendht_tpu_torch import crypto as pcrypto
+from test_torch_storage import case_calls, case_params, jax_case_namespace
 
 PORT, JAX = "opendht_tpu_torch", "opendht_tpu"
 CRYPTO = {JAX: jcrypto, PORT: pcrypto}
@@ -382,3 +394,48 @@ def test_secure_policies_give_the_same_results(case, jax_identities):
     assert got[PORT] == got[JAX]
     want = POLICY_CASES[case]
     assert {k: got[PORT][k] for k in want} == want
+
+
+# ------------------------------------------------- tests/test_crypto.py
+CRYPTO_CASES = case_params("test_crypto.py")
+# results that no random draw reaches, besides booleans, None and numbers
+CRYPTO_EXACT = ("hash_data", "Certificate.get_name",
+                "Certificate.get_issuer_name")
+
+
+def crypto_view(rec: list) -> list:
+    """A crypto call record with each result that a key, a nonce or a
+    salt reaches reduced to its type."""
+    return [(name, res if name in CRYPTO_EXACT or res is None
+             or isinstance(res, (bool, int, float))
+             else ("kind", res[0] if isinstance(res, tuple)
+                   else type(res).__name__))
+            for name, res in rec]
+
+
+def test_every_crypto_case_is_twinned():
+    assert len({n for n, _ in CRYPTO_CASES}) == 19
+    assert len(CRYPTO_CASES) == 19 + 5          # six sizes of one case
+
+
+@pytest.mark.parametrize("name,kw", CRYPTO_CASES,
+                         ids=["%s%s" % (n, "".join(f"[{v}]" for v in
+                                                   kw.values()))
+                              for n, kw in CRYPTO_CASES])
+def test_jax_crypto_case_twin(name, kw, monkeypatch):
+    recs = []
+    for pkg in ("jax", "port"):
+        ns = jax_case_namespace("test_crypto.py", pkg)
+        case = ns[name]
+        params = inspect.signature(case).parameters
+        fix = dict(kw)
+        # the file's module fixtures, made by the run's own package
+        if "identity" in params:
+            fix["identity"] = ns["crypto"].generate_identity(
+                "testsign", key_length=1024)
+        if "ec_identity" in params:
+            fix["ec_identity"] = ns["crypto"].generate_ec_identity(
+                "testsign-ec")
+        recs.append(crypto_view(case_calls(case, fix, pkg, "test_crypto.py",
+                                           ("crypto.py",))))
+    assert recs[1] == recs[0]

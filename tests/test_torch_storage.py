@@ -27,6 +27,7 @@ import dataclasses
 import enum
 import functools
 import math
+import os
 import random
 import re
 import socket
@@ -121,6 +122,59 @@ def traced_returns(fn, pkg: str, files) -> list:
     finally:
         sys.setprofile(None)
     return rec
+
+
+def case_calls(case, kwargs: dict, pkg: str, fname: str, files) -> list:
+    """Call ``case(**kwargs)``, a function of tests/<fname> read as
+    ``pkg``, with a profile hook on this thread, and return, in order,
+    ``(qualified name, norm(result))`` for every call that the test
+    file's own code makes into ``files`` of the package: what the JAX
+    test observes of the modules it tests, whatever they call inside."""
+    root = REPO / PACKAGES[pkg]
+    watched = {str(root / f) for f in files}
+    test_file = str(TESTS / fname)
+    rec = []
+
+    def hook(frame, event, arg):
+        if event == "return" and frame.f_code.co_filename in watched \
+                and frame.f_back is not None \
+                and frame.f_back.f_code.co_filename == test_file:
+            rec.append((frame.f_code.co_qualname, norm(arg)))
+    sys.setprofile(hook)
+    try:
+        case(**kwargs)
+    finally:
+        sys.setprofile(None)
+    return rec
+
+
+def seed_streams(monkeypatch, seed: int) -> None:
+    """``random`` seeded, and ``os.urandom`` and ``random._urandom``
+    (which ``secrets`` draws through) one stream of ``seed``: the same
+    draws before each run of a twin pair."""
+    random.seed(seed)
+    rng = random.Random(seed ^ 0x5EED)
+
+    def urandom(n):
+        return bytes(rng.getrandbits(8) for _ in range(n))
+    monkeypatch.setattr(os, "urandom", urandom)
+    monkeypatch.setattr(random, "_urandom", urandom)
+
+
+def case_params(fname: str) -> list:
+    """``(name, kwargs)`` for every case of tests/<fname>, a
+    ``pytest.mark.parametrize``d case once per value."""
+    ns = jax_case_namespace(fname, "jax")
+    out = []
+    for name in case_names(fname):
+        marks = [m for m in getattr(ns[name], "pytestmark", [])
+                 if m.name == "parametrize"]
+        if not marks:
+            out.append((name, {}))
+            continue
+        argname, values = marks[0].args[:2]
+        out += [(name, {argname: v}) for v in values]
+    return out
 
 
 def run_twins(fname: str, name: str, files, **kwargs) -> tuple:
