@@ -15,6 +15,7 @@ reply-stream goldens (port alone) and the telemetry envelope.
 import hashlib
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -380,13 +381,223 @@ def test_telemetry_on_and_off_bit_identical():
 
 
 def test_record_wave_traces_the_wave_under_a_context():
+    """The round spans carry the clock's measured rounds, not the wave
+    divided evenly; without a clock (the tp wave) no round is made up."""
     from opendht_tpu_torch import tracing
     tr = tracing.get_tracer()
     out = {"hops": torch.tensor([1, 3, 2], dtype=torch.int32)}
+    clock = TS._StageClock()
+    clock.t = 1000.0                      # the record stage's entry
+    clock.rounds = [[999.9972, 0.0010, 0.0002], [999.9984, 0.0004, 0.0001],
+                    [999.9989, 0.0009, 0.0002]]
     root = tracing.TraceContext.new_root()
     with tracing.activate(root):
-        TS.record_wave(out, 0.003, 3)
-    spans = [s for s in tr.spans(root.trace_hex)
-             if s["name"].startswith("dht.search.")]
-    assert [s["name"] for s in spans].count("dht.search.round") == 3
-    assert [s["name"] for s in spans].count("dht.search.wave") == 1
+        TS.record_wave(out, 0.003, 3, clock=clock)
+    spans = tr.spans(root.trace_hex)
+    (wave,) = [s for s in spans if s["name"] == "dht.search.wave"]
+    rounds = sorted((s for s in spans if s["name"] == "dht.search.round"),
+                    key=lambda s: s["attrs"]["round"])
+    assert [r["parent_id"] for r in rounds] == [wave["span_id"]] * 3
+    assert [r["attrs"]["round"] for r in rounds] == [0, 1, 2]
+    for r, (t0, launch, sync) in zip(rounds, clock.rounds):
+        assert r["dur"] == pytest.approx(launch + sync, abs=1e-12)
+        assert r["attrs"]["launch_s"] == launch
+        assert r["attrs"]["sync_s"] == sync
+        # one offset maps the clock to the tracer's: the wave starts
+        # ``elapsed`` before the record stage
+        assert r["start"] - wave["start"] == pytest.approx(
+            t0 - (clock.t - 0.003), abs=1e-6)
+    assert wave["dur"] == 0.003 and wave["attrs"]["rounds"] == 3
+
+    root = tracing.TraceContext.new_root()
+    with tracing.activate(root):
+        TS.record_wave(out, 0.003, 3, mode="tp")
+    assert [s["name"] for s in tr.spans(root.trace_hex)] == [
+        "dht.search.wave"]
+
+
+# -- the stage clock -------------------------------------------------------
+
+ROUND_STAGES = ("select", "reply", "gather", "merge", "done", "sync")
+#: the stages inside the wave's envelope, ``dht_search_wave_seconds``
+ENVELOPE = ("prepare", "bootstrap") + ROUND_STAGES + ("compact", "finish")
+
+
+def _stage_wave(**kw):
+    """One CPU wave with the registry on: (outputs, the registry's diff,
+    loop iterations counted by the reply streams it drew, wall seconds
+    around the call)."""
+    ids, targets = _golden_inputs()
+    s, _, n = TST.sort_table(TK.to_keys(ids[:2048], "cpu"))
+    q = TK.to_keys(targets[:64], "cpu")
+    reg = TT.get_registry()
+    streams = []
+    counter = TS._reply_counter
+
+    def counting(*a, **k):
+        streams.append(a[0])
+        return counter(*a, **k)
+
+    TS._reply_counter = counting
+    try:
+        before = reg.snapshot()
+        t0 = time.perf_counter()
+        out = TS.simulate_lookups(s, n, q, seed=5, state_limbs=2,
+                                  device="cpu", **kw)
+        wall = time.perf_counter() - t0
+        diff = TT.snapshot_diff(before, reg.snapshot())
+    finally:
+        TS._reply_counter = counter
+    return out, diff, len(streams) - 1, wall      # minus the bootstrap's
+
+
+def _stages(diff):
+    pre = 'dht_search_stage_seconds{mode="single",stage="'
+    return {k[len(pre):-2]: v for k, v in diff["histograms"].items()
+            if k.startswith(pre)}
+
+
+#: (engine settings, reads besides one per iteration on the CPU)
+SYNC_CASES = {
+    # the tier, the final all_done, the hops' copy back
+    "plain": ({}, 3),
+    # the loop stops on its round cap: no final all_done
+    "capped": ({"max_hops": 2}, 2),
+    # the cut (no final read), the nonzero, the sub-batch's and the
+    # safety net's final reads
+    "compacted": ({"compact_after": 2, "compact_cap": 64}, 5),
+    "overflowed": ({"compact_after": 2, "compact_cap": 8}, 5),
+}
+
+
+@pytest.mark.parametrize("case", ["plain", "compacted"])
+def test_stages_partition_the_wave(case):
+    kw, _ = SYNC_CASES[case]
+    out, diff, _, wall = _stage_wave(**kw)
+    st = _stages(diff)
+    assert all(h["count"] == 1 for h in st.values())
+    want = {"upload", "record", *ENVELOPE}
+    if case == "plain":
+        want.discard("compact")
+    assert set(st) == want
+    inside = sum(st[s]["sum"] for s in ENVELOPE if s in st)
+    wave = diff["histograms"]['dht_search_wave_seconds{mode="single"}']
+    assert wave["count"] == 1
+    assert inside == pytest.approx(wave["sum"], rel=0.01, abs=50e-6)
+    # the stages cover the call, from its first reading to its last
+    total = sum(h["sum"] for h in st.values())
+    assert total <= wall
+    assert all(h["sum"] > 0 for h in st.values())
+
+
+@pytest.mark.parametrize("case", ["plain", "capped", "compacted"])
+def test_rounds_total_counts_the_loop_iterations(case):
+    kw, _ = SYNC_CASES[case]
+    out, diff, iterations, _ = _stage_wave(**kw)
+    got = diff["counters"]['dht_search_rounds_total{mode="single"}']
+    assert got == iterations
+    assert iterations >= int(out["hops"].max())
+    if case == "capped":
+        assert iterations == 2
+    assert _stages(diff)["select"]["count"] == 1
+
+
+@pytest.mark.parametrize("case", sorted(SYNC_CASES))
+def test_host_syncs_are_iterations_plus_the_fixed_reads(case):
+    kw, fixed = SYNC_CASES[case]
+    out, diff, iterations, _ = _stage_wave(**kw)
+    assert diff["counters"]['dht_search_host_syncs_total{mode="single"}'] \
+        == iterations + fixed
+    if case == "overflowed":
+        # the cap overflowed, so the safety net ran rounds of its own
+        assert int((out["hops"] > 2).sum()) > 8
+
+
+def test_registry_disabled_reads_no_clock_and_writes_no_series(
+        monkeypatch):
+    on, _, _, _ = _stage_wave()
+    ids, targets = _golden_inputs()
+    s, _, n = TST.sort_table(TK.to_keys(ids[:2048], "cpu"))
+    q = TK.to_keys(targets[:64], "cpu")
+
+    def no_clock():
+        raise AssertionError("a clock was read")
+
+    monkeypatch.setattr(TS, "time", type("NoClock", (), {
+        "perf_counter": staticmethod(no_clock),
+        "time": staticmethod(no_clock)}))
+    reg = TT.get_registry()
+    before = reg.snapshot()
+    reg.enabled = False
+    try:
+        off = TS.simulate_lookups(s, n, q, seed=5, state_limbs=2,
+                                  device="cpu")
+    finally:
+        reg.enabled = True
+    diff = TT.snapshot_diff(before, reg.snapshot())
+    assert not any(k.startswith("dht_search_")
+                   for k in (*diff["histograms"], *diff["counters"]))
+    for key in ("nodes", "hops", "converged", "dist"):
+        assert torch.equal(on[key], off[key]), key
+
+
+@pytest.fixture(scope="module")
+def profiled_wave():
+    """One CPU wave under ``torch.profiler`` and a sampled trace context:
+    (the profiler's ``search.*`` intervals by name, in µs, the ring's
+    spans, the registry's diff)."""
+    from torch.profiler import ProfilerActivity, profile
+    from opendht_tpu_torch import tracing
+    ids, targets = _golden_inputs()
+    s, _, n = TST.sort_table(TK.to_keys(ids[:2048], "cpu"))
+    q = TK.to_keys(targets[:64], "cpu")
+    reg = TT.get_registry()
+    tr = tracing.get_tracer()
+    root = tracing.TraceContext.new_root()
+    before = reg.snapshot()
+    with profile(activities=[ProfilerActivity.CPU]) as prof, \
+            tracing.activate(root):
+        TS.simulate_lookups(s, n, q, seed=5, state_limbs=2, device="cpu")
+    diff = TT.snapshot_diff(before, reg.snapshot())
+    marks = {}
+    for e in prof.events():
+        if e.name.startswith("search."):
+            marks.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    return ({k: sorted(v) for k, v in marks.items()},
+            tr.spans(root.trace_hex), diff)
+
+
+def test_profiler_sees_one_select_per_iteration_and_every_stage(
+        profiled_wave):
+    marks, _, diff = profiled_wave
+    rounds = diff["counters"]['dht_search_rounds_total{mode="single"}']
+    assert rounds > 0
+    assert len(marks["search.select"]) == rounds
+    assert set(marks) == {"search." + s for s in ENVELOPE
+                          if s != "compact"} | {"search.upload",
+                                                "search.record"}
+    # the bootstrap's gather and merge keep their labels, inside it
+    (boot,) = marks["search.bootstrap"]
+    inner = [m for m in marks["search.merge"]
+             if boot[0] <= m[0] and m[1] <= boot[1]]
+    assert len(inner) == 1 and len(marks["search.merge"]) == rounds + 1
+
+
+def test_round_spans_match_the_profilers_rounds(profiled_wave):
+    """Each ring round lasts from its ``search.select`` start to the end
+    of the ``search.sync`` after it, on the profiler's clock."""
+    marks, spans, _ = profiled_wave
+    (wave,) = [s for s in spans if s["name"] == "dht.search.wave"]
+    rounds = sorted((s for s in spans if s["name"] == "dht.search.round"),
+                    key=lambda s: s["attrs"]["round"])
+    selects = marks["search.select"]
+    assert len(rounds) == len(selects)
+    for r, (a, _) in zip(rounds, selects):
+        end = min(b for s, b in marks["search.sync"] if s > a)
+        want = (end - a) / 1e6
+        assert r["dur"] == pytest.approx(want, rel=0.05, abs=2e-4)
+        assert r["dur"] == pytest.approx(
+            r["attrs"]["launch_s"] + r["attrs"]["sync_s"], abs=1e-12)
+        assert wave["start"] <= r["start"]
+        assert r["start"] + r["dur"] <= wave["start"] + wave["dur"]
